@@ -1,0 +1,108 @@
+"""Kernel K1 (angular partition) of the port against mmtpu's.
+
+On the CPU the wrappers compute their plain PyTorch versions, so these tests
+hold the plain forward, the explicit backward formula and the autograd
+function around them to mmtpu's XLA function and to its Pallas kernel in
+interpret mode (forward rtol 1e-5, gradient atol 1e-5, the tolerances of
+tests/test_kernels.py).  The CUDA kernels themselves are compared with the
+plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import mmtpu_torch.kernels.angular as K
+from mmtpu.kernels.angular import angular_partition_pallas
+from mmtpu.ops.wordprob import angular_partition as j_angular_partition
+
+
+def _inputs(rng, b, d, v):
+    lat = rng.standard_normal((b, d)).astype(np.float32)
+    vocab = rng.standard_normal((v, d)).astype(np.float32)
+    g = rng.standard_normal((b, 1)).astype(np.float32)
+    return lat, vocab, g
+
+
+@pytest.mark.parametrize("b,d,v,tile", [(16, 36, 100, 32), (37, 12, 40, 16), (8, 20, 64, 16)])
+def test_forward_matches_mmtpu(rng, b, d, v, tile):
+    """Includes vocab sizes that are not a multiple of the kernel's tile."""
+    lat, vocab, _ = _inputs(rng, b, d, v)
+    got = K.angular_fwd(torch.tensor(lat), torch.tensor(vocab),
+                        torch.linalg.vector_norm(torch.tensor(vocab), dim=-1))
+    want_x = j_angular_partition(jnp.asarray(lat), jnp.asarray(vocab))
+    want_p = angular_partition_pallas(jnp.asarray(lat), jnp.asarray(vocab), tile)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_x), rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_p), rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,d,v,tile", [(6, 12, 40, 16), (37, 12, 40, 16)])
+def test_backward_matches_mmtpu_vjp(rng, b, d, v, tile):
+    """bwd_ref and autograd through AngularPartitionFn against JAX's VJP of
+    the Pallas kernel, with a non-uniform cotangent."""
+    lat, vocab, g = _inputs(rng, b, d, v)
+    want = jax.grad(lambda l: (angular_partition_pallas(l, jnp.asarray(vocab), tile)
+                               * jnp.asarray(g)).sum())(jnp.asarray(lat))
+    lat_t, voc_t, g_t = torch.tensor(lat), torch.tensor(vocab), torch.tensor(g)
+    ref = K.angular_partition_bwd_ref(lat_t, voc_t, torch.linalg.vector_norm(voc_t, dim=-1), g_t)
+    lat_g = lat_t.clone().requires_grad_()
+    voc_g = voc_t.clone().requires_grad_()
+    (K.angular_partition(lat_g, voc_g) * g_t).sum().backward()
+    np.testing.assert_allclose(ref.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(lat_g.grad.numpy(), np.asarray(want), atol=1e-5)
+    assert voc_g.grad is None  # the vocabulary is a constant, as in mmtpu
+
+
+def test_autograd_fn_matches_autograd_of_plain(rng):
+    lat, vocab, g = _inputs(rng, 9, 16, 50)
+    a = torch.tensor(lat, requires_grad=True)
+    b = torch.tensor(lat, requires_grad=True)
+    (K.angular_partition(a, torch.tensor(vocab)) * torch.tensor(g)).sum().backward()
+    (K.angular_partition_ref(b, torch.tensor(vocab)) * torch.tensor(g)).sum().backward()
+    np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-6)
+
+
+def test_cpu_path_launches_nothing(rng):
+    lat, vocab, g = _inputs(rng, 4, 8, 20)
+    before = dict(K.LAUNCHES)
+    z = K.angular_partition(torch.tensor(lat, requires_grad=True), torch.tensor(vocab))
+    z.sum().backward()
+    assert K.LAUNCHES == before
+
+
+def test_wrappers_reject_bad_shapes(rng):
+    lat, vocab, g = (torch.tensor(x) for x in _inputs(rng, 4, 8, 20))
+    vn = torch.linalg.vector_norm(vocab, dim=-1)
+    with pytest.raises(ValueError, match="depth"):
+        K.angular_fwd(lat[:, :7].contiguous(), vocab, vn)
+    with pytest.raises(ValueError, match="vnorm"):
+        K.angular_fwd(lat, vocab, vn[:5])
+    with pytest.raises(ValueError, match="cotangent"):
+        K.angular_bwd(lat, vocab, vn, g[:3])
+    with pytest.raises(ValueError, match="device"):
+        K.angular_fwd(lat.to("meta"), vocab.to("meta"), vn.to("meta"))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from mmtpu_torch.kernels import build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+
+
+def test_library_name_tracks_sources(monkeypatch, tmp_path):
+    """An edit of a source changes the library's name, so it rebuilds."""
+    from mmtpu_torch.kernels import build
+
+    src = tmp_path / "k.cu"
+    src.write_text("// one")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path()
+    src.write_text("// two")
+    assert build.library_path() != first
