@@ -6,28 +6,41 @@
 Phases, in order; any failure raises and the exit code is not 0:
 
 0. the card's name and power limit; TF32 off for matmuls and cuDNN;
-1. build the CUDA kernel library from ``mmtpu_torch/csrc`` (timed);
+1. build the CUDA kernel library from ``mmtpu_torch/csrc`` (one ``nvcc`` per
+   source, side by side; timed);
 2. kernel K1 (angular partition, forward and backward) against its plain
    PyTorch versions at the main path's shapes, plus a ragged shape and a
    zero latent row; kernel and plain times at 64 and 512 rows (device time
    per call from queued bursts, and the median of single calls);
-3. the main path through the normal entry point,
-   ``mmtpu_torch.run.main([cfg, "mosi", "--device", "cuda", ...])``: the
-   non-e2e MMB2 fit at full MOSI width (synthetic data: 1284/229/686
-   utterances, vocab 3016 x 300, audio 74, visual 47, batch 64, inference
-   batch 512; SGD, layer norm, lr 1e-4 as in bench.py), 3 epochs, 10
-   sentiment epochs; the kernel launch counts of that run are read from zero;
-4. the same small config run on the GPU and on the CPU (where the kernel
-   wrappers use their plain versions), which must agree.
+3. kernel K2 (fused decoder update, Adam and SGD) against its plain versions
+   at (B, D, F) = (64, 300, 1400), (64, 300, 1536), (512, 300, 1416) and a
+   ragged (37, 300, 37), with flag 1 and flag 0; times at (64, 300, 1400);
+4. the non-e2e path through the normal entry point,
+   ``mmtpu_torch.run.main([cfg, "mosi", "--e2e", "n", "--device", "cuda",
+   ...])``: the MMB2 latent fit at full MOSI width (synthetic data:
+   1284/229/686 utterances, vocab 3016 x 300, audio 74, visual 47, batch 64,
+   inference batch 512; SGD, layer norm, lr 1e-4 as in bench.py), 3 epochs,
+   10 sentiment epochs;
+5. the e2e path, the grid's mode, through the same entry point with
+   ``--e2e y`` at the same width and settings (likelihood weight from the
+   grid);
+6. the fused decoder update: ``fit_e2e`` with ``fused_dec_update=True``
+   beside the same fit without it, same draws, at the same width, once with
+   SGD and once with Adam, each timed after one untimed warm-up epoch;
+7. small configs on the GPU and on the CPU (where the kernel wrappers use
+   their plain versions), which must agree: the non-e2e run and the fused
+   e2e fit.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-rest of the repository beside it, the script exits non-zero and prints no
-result.
+Around each path of phases 4-6 the kernel launch counts are set to 0 just
+before and read just after.  The line before the last is the kernels' JSON
+record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the rest of the repository beside it, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -44,7 +57,17 @@ SHAPES = [(64, 300, 3016, False), (512, 300, 3016, False), (2048, 300, 3016, Fal
           (37, 300, 3001, False), (64, 300, 3016, True)]
 FWD_SUM_REL, FWD_RTOL = 1e-5, 1e-5  # the TPU kernel's gate (bench.py) and tests
 GRAD_MAX_REL, GRAD_ATOL = 1e-3, 1e-5
+# (B, D, F) of K2: the train batch at the stacked MOSI head width (pos 2), the
+# width the TPU code padded to, the inference batch at pos 4, a ragged shape
+K2_SHAPES = [(64, 300, 1400), (64, 300, 1536), (512, 300, 1416), (37, 300, 37)]
+K2_RTOL, K2_ATOL, K2_GX_MAX_REL = 1e-5, 1e-5, 1e-5  # the TPU kernel's tests
 N_EPOCHS, N_SENTIMENT_EPOCHS = 3, 10
+STEPS_PER_EPOCH = -(-1284 // 64)
+# one NVIDIA H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet)
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# elementwise operations per weight element of a K2 step, beside its two
+# products: Adam's moments, bias corrections, sqrt, eps, divide and step; SGD's step
+K2_ELEMENTWISE_OPS = {"adam": 14, "sgd": 2}
 
 
 def log(msg: str) -> None:
@@ -85,6 +108,13 @@ def _device_ms(torch, fn, reps: int = 100, bursts: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def bound_ms(ops: float, nbytes: float) -> tuple:
+    """The least time the card could take: the larger of operations over the
+    float32 peak and bytes over the memory rate; and which of the two it is."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check_kernels(torch, K, dev) -> dict:
@@ -143,51 +173,160 @@ def check_kernels(torch, K, dev) -> dict:
         for kind, t in (("device", times[b]), ("one call", calls)):
             log(f"[k1] B={b} {kind} ms: fwd kernel {t['fwd']:.4f} plain {t['fwd_plain']:.4f}; "
                 f"bwd kernel {t['bwd']:.4f} plain {t['bwd_plain']:.4f}")
-    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": times}
+    # the bounds at the train batch: each input read once, each output written once
+    b, d, v = 64, 300, 3016
+    fwd_bytes = 4 * (b * d + v * d + v + b)
+    bounds = {"fwd": bound_ms(2 * b * v * d, fwd_bytes),
+              "bwd": bound_ms(4 * b * v * d, fwd_bytes + 4 * b * d)}
+    log(f"[k1] bound at B=64: fwd {bounds['fwd'][0]:.5f} ms ({bounds['fwd'][1]}), "
+        f"bwd {bounds['bwd'][0]:.5f} ms ({bounds['bwd'][1]})")
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": times, "bounds": bounds}
 
 
-def run_main_path(torch, K, tmp: str) -> dict:
-    """Phase 3: the non-e2e MOSI run through ``mmtpu_torch.run.main``."""
+def _k2_case(torch, dev, gen, b, d, f):
+    """Inputs of one K2 call.  g_z is scaled by 1/sqrt(B), so g_w ~ N(0, 1)
+    at every batch; every output table is then far above atol 1e-5 (v and
+    v2 >= 0.01, m2 ~ 0.1, the Adam step ~ 0.2 lr), so the check resolves an
+    error in any element of any of them.  The scalars are device tensors
+    (lr 1e-3, bias corrections at step 5)."""
+    r = lambda *s: torch.randn(*s, generator=gen)
+    t = {"w": 0.05 * r(d, f), "m": 0.1 * r(d, f), "v": 0.01 * (1.0 + r(d, f).abs()),
+         "x": r(b, d), "g_z": r(b, f) / b ** 0.5}
+    t = {k: a.to(dev) for k, a in t.items()}
+    t["lr"] = torch.tensor(1e-3, device=dev)
+    t["bc1"] = torch.tensor(1.0 - 0.9 ** 5, device=dev)
+    t["bc2"] = torch.tensor(1.0 - 0.999 ** 5, device=dev)
+    return t
+
+
+def _k2_calls(T, t, flag):
+    adam = dict(kernel=lambda: T.fused_gemm_adam_update(t["w"], t["m"], t["v"], t["x"],
+                                                        t["g_z"], t["lr"], t["bc1"], t["bc2"],
+                                                        flag),
+                plain=lambda: T.reference_adam(t["w"], t["m"], t["v"], t["x"], t["g_z"],
+                                               t["lr"], t["bc1"], t["bc2"], flag))
+    sgd = dict(kernel=lambda: T.fused_gemm_sgd_update(t["w"], t["x"], t["g_z"], t["lr"], flag),
+               plain=lambda: T.reference_sgd(t["w"], t["x"], t["g_z"], t["lr"], flag))
+    return {"adam": adam, "sgd": sgd}
+
+
+def compare_k2(kind: str, got, want, t: dict, on: float, where) -> tuple:
+    """Hold one K2 call's outputs to its plain version's: each of w, m, v
+    elementwise at rtol/atol 1e-5 and at max-rel 1e-5 over the table; with
+    flag 0, bit for bit equal to the inputs; g_x at max-rel 1e-5.  Returns
+    the largest absolute error over the tables, g_x's and g_x's max-rel."""
+    worst = 0.0
+    for name, g, w_ in zip(("w", "m", "v") if kind == "adam" else ("w",), got[:-1], want[:-1]):
+        if on == 0.0 and not (g == t[name]).all():
+            raise AssertionError(f"K2-{kind} flag 0 changed {name} at {where}")
+        diff = (g - w_).abs()
+        if (diff - (K2_ATOL + K2_RTOL * w_.abs())).max().item() > 0:
+            raise AssertionError(f"K2-{kind} {name} outside rtol/atol 1e-5 at {where} flag {on}")
+        if diff.max().item() > K2_RTOL * w_.abs().max().item():
+            raise AssertionError(f"K2-{kind} {name} max-rel above 1e-5 at {where} flag {on}")
+        worst = max(worst, diff.max().item())
+    gx_abs = (got[-1] - want[-1]).abs().max().item()
+    gx_rel = gx_abs / want[-1].abs().max().item()
+    if gx_rel > K2_GX_MAX_REL:
+        raise AssertionError(f"K2-{kind} g_x max-rel {gx_rel:.3e} at {where}")
+    return worst, gx_abs, gx_rel
+
+
+def check_k2(torch, T, dev) -> dict:
+    """Phase 3: K2 (Adam and SGD) vs its plain versions; errors, times, bounds."""
+    gen = torch.Generator().manual_seed(1)
+    err = {"adam": 0.0, "sgd": 0.0}
+    for b, d, f in K2_SHAPES:
+        t = _k2_case(torch, dev, gen, b, d, f)
+        for on in (1.0, 0.0):
+            flag = torch.tensor(on, device=dev)
+            for kind, fns in _k2_calls(T, t, flag).items():
+                got, want = fns["kernel"](), fns["plain"]()
+                torch.cuda.synchronize()
+                worst, gx_abs, gx_rel = compare_k2(kind, got, want, t, on, (b, d, f))
+                err[kind] = max(err[kind], worst, gx_abs)
+                log(f"[k2] {kind} B={b} D={d} F={f} flag={on:.0f}: tables max abs "
+                    f"{worst:.3e}; g_x max abs {gx_abs:.3e}, max-rel {gx_rel:.3e}")
+
+    b, d, f = K2_SHAPES[0]
+    t = _k2_case(torch, dev, gen, b, d, f)
+    fns = _k2_calls(T, t, torch.tensor(1.0, device=dev))
+    times, bounds = {}, {}
+    for kind in ("adam", "sgd"):
+        times[kind] = {k: _device_ms(torch, fn) for k, fn in fns[kind].items()}
+        calls = {k: _call_ms(torch, fn) for k, fn in fns[kind].items()}
+        tables = 3 if kind == "adam" else 1
+        ops = 4 * b * d * f + K2_ELEMENTWISE_OPS[kind] * d * f
+        nbytes = 4 * (2 * tables * d * f + b * f + 2 * b * d)
+        bounds[kind] = bound_ms(ops, nbytes)
+        log(f"[k2] {kind} B={b} D={d} F={f}: device ms kernel {times[kind]['kernel']:.4f} "
+            f"plain {times[kind]['plain']:.4f}; one call ms kernel {calls['kernel']:.4f} "
+            f"plain {calls['plain']:.4f}; bound {bounds[kind][0]:.5f} ms ({bounds[kind][1]}: "
+            f"{ops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+    return {"err": err, "times": times, "bounds": bounds}
+
+
+def _reset_launches(K, T) -> None:
+    K.LAUNCHES.update(fwd=0, bwd=0)
+    T.LAUNCHES.update(adam=0, sgd=0)
+
+
+def _read_launches(K, T) -> dict:
+    return {"k1_fwd": K.LAUNCHES["fwd"], "k1_bwd": K.LAUNCHES["bwd"],
+            "k2_adam": T.LAUNCHES["adam"], "k2_sgd": T.LAUNCHES["sgd"]}
+
+
+def smoke_config(e2e: bool) -> dict:
+    """Grid config 0 with bench.py's fit settings (layer norm, lr 1e-4): as it
+    stands (batch norm, lr 1e-3) it diverges to NaN within 3 epochs at MOSI
+    width, in mmtpu as in the port.  Its likelihood weight is the grid's."""
+    from mmtpu_torch.config import make_grid
+
+    return dict(make_grid()[0], e2e=e2e, n_epochs=N_EPOCHS,
+                n_sentiment_epochs=N_SENTIMENT_EPOCHS, norm="layer_norm", lr=1e-4)
+
+
+def run_cli_path(torch, K, T, tmp: str, e2e: bool) -> dict:
+    """Phases 4 and 5: one MOSI run through ``mmtpu_torch.run.main``."""
     import numpy as np
 
-    from mmtpu.config import make_grid
     import mmtpu_torch.runner as runner
     from mmtpu_torch.run import main
 
-    # grid config 0 with bench.py's fit settings (SGD, layer norm, lr 1e-4):
-    # as it stands (batch norm, lr 1e-3) it diverges to NaN within 3 epochs
-    # at MOSI width, in mmtpu as in the port
-    cfg = dict(make_grid()[0], e2e=False, n_epochs=N_EPOCHS,
-               n_sentiment_epochs=N_SENTIMENT_EPOCHS, norm="layer_norm", lr=1e-4)
-    cfg_path = os.path.join(tmp, "config.json")
+    tag = "e2e" if e2e else "non-e2e"
+    cfg = smoke_config(e2e)
+    cfg_path = os.path.join(tmp, f"config_{tag}.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    out_root = os.path.join(tmp, "out")
+    out_root = os.path.join(tmp, f"out_{tag}")
     data_dir = os.path.join(tmp, "data")  # empty: the synthetic full-size MOSI
-    os.makedirs(data_dir)
+    os.makedirs(data_dir, exist_ok=True)
 
     fits = []
-    fit_latents = runner.fit_latents
+    originals = {"fit_latents": runner.fit_latents, "fit_e2e": runner.fit_e2e}
 
-    def timed_fit(init_embed, *args, **kw):  # times each fit; the run is unchanged
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fit_latents(init_embed, *args, **kw)
-        torch.cuda.synchronize()
-        fits.append((int(init_embed.shape[0]), args[-1].train_decoder,
-                     time.perf_counter() - t0))
-        return out
+    def timed(name, trains):  # times each fit; the run is unchanged
+        def fit(init_embed, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](init_embed, *args, **kw)
+            torch.cuda.synchronize()
+            fits.append((int(init_embed.shape[0]), trains(args), time.perf_counter() - t0))
+            return out
+        return fit
 
-    runner.fit_latents = timed_fit
-    K.LAUNCHES.update(fwd=0, bwd=0)
+    runner.fit_latents = timed("fit_latents", lambda args: args[-1].train_decoder)
+    runner.fit_e2e = timed("fit_e2e", lambda args: True)
+    _reset_launches(K, T)
     try:
         t0 = time.perf_counter()
-        rc = main([cfg_path, "mosi", "--device", "cuda", "--out_root", out_root,
-                   "--data_dir", data_dir])
+        rc = main([cfg_path, "mosi", "--e2e", "y" if e2e else "n", "--device", "cuda",
+                   "--out_root", out_root, "--data_dir", data_dir])
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        runner.fit_latents = fit_latents
-    launches = dict(K.LAUNCHES)
+        runner.fit_latents, runner.fit_e2e = originals["fit_latents"], originals["fit_e2e"]
+    launches = _read_launches(K, T)
     if rc != 0:
         raise AssertionError(f"mmtpu_torch.run.main returned {rc}")
 
@@ -200,30 +339,113 @@ def run_main_path(torch, K, tmp: str) -> dict:
         raise AssertionError(f"post/embed.npy has shape {post.shape}")
     if not (np.isfinite(losses).all() and np.isfinite(post).all()):
         raise AssertionError(f"non-finite loss or embeddings: losses {losses}")
-    steps = N_EPOCHS * -(-1284 // cfg.get("batch_size", 64))
-    for k in ("fwd", "bwd"):
+    steps = N_EPOCHS * STEPS_PER_EPOCH
+    for k in ("k1_fwd", "k1_bwd"):
         if launches[k] < steps:
-            raise AssertionError(f"K1 {k} launched {launches[k]} times in the main path, "
+            raise AssertionError(f"{k} launched {launches[k]} times in the {tag} path, "
                                  f"expected at least {steps}")
     train_s = sum(s for n, trains, s in fits if trains)
     train_utt_s = 1284 * N_EPOCHS / train_s
-    log(f"[main] run.main wall {wall:.3f} s; train fit {train_s:.3f} s = "
+    log(f"[{tag}] run.main wall {wall:.3f} s; train fit {train_s:.3f} s = "
         f"{train_utt_s:.1f} utt/s ({N_EPOCHS} epochs x 1284); fits "
         f"{[(n, round(s, 4)) for n, _, s in fits]}; final loss {losses[-1]:.4f}; "
-        f"K1 launches {launches}")
+        f"launches {launches}")
     return {"launches": launches, "wall_s": wall, "train_utt_s": train_utt_s,
             "final_loss": float(losses[-1])}
 
 
+def _e2e_inputs(torch, cfg: dict, data_dir: str, dev, kind: str) -> tuple:
+    """The training fit's inputs of one run of ``cfg`` on ``dev``, with the
+    draws of ``Draws(seed)``."""
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.convert import to_torch
+    from mmtpu_torch.runner import Draws, build_hp, prepare
+    from mmtpu_torch.train.latents import train_view
+
+    ecfg = ExperimentConfig.from_dict(dict(cfg, optimizer=kind))
+    prep = prepare(ecfg, data_dir)
+    draws = Draws(ecfg.seed)
+    move = lambda tree: {k: (move(v) if isinstance(v, dict) else v.to(dev))
+                         for k, v in tree.items()}
+    dec = move(draws.init_decoder(prep.embed_dim, prep.audio_dim, prep.visual_dim,
+                                  ecfg.unimodal, prep.text_gauss_dim))
+    labels = to_torch(prep.labels["train"], dev)
+    sen = move(draws.init_e2e_sentiment(prep.embed_dim, ecfg.sentiment_hidden_size, 1))
+    n = prep.sif_init["train"].shape[0]
+    perms = draws.train_permutations(n, ecfg.n_epochs)
+    hp = dict(build_hp(ecfg, dev), train_heads=torch.tensor(1.0, device=dev))
+    return (to_torch(prep.sif_init["train"], dev), dec, sen,
+            to_torch(train_view(prep.splits["train"]), dev), labels,
+            to_torch(prep.vocab_embeddings, dev), hp, perms, ecfg)
+
+
+def run_fused_path(torch, K, T, tmp: str) -> dict:
+    """Phase 6: ``fit_e2e`` with and without the fused decoder update, SGD and
+    Adam, same draws, at full MOSI width."""
+    from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
+
+    data_dir = os.path.join(tmp, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    out = {}
+    for kind in ("sgd", "adam"):
+        emb0, dec, sen, data, labels, vocab, hp, perms, ecfg = _e2e_inputs(
+            torch, smoke_config(True), data_dir, torch.device("cuda", 0), kind)
+        res = {}
+        for fused in (False, True):
+            spec = E2EFitSpec(n_epochs_max=ecfg.n_epochs, batch_size=ecfg.batch_size,
+                              unimodal=False, opt_kind=kind, fused_dec_update=fused)
+            # one untimed epoch first: the first use of each kernel and each
+            # GEMM shape in a process costs extra time once
+            fit_e2e(emb0, dec, sen, data, labels, vocab, hp,
+                    dataclasses.replace(spec, n_epochs_max=1), perms=perms[:1])
+            torch.cuda.synchronize()
+            _reset_launches(K, T)
+            t0 = time.perf_counter()
+            fit = fit_e2e(emb0, dec, sen, data, labels, vocab, hp, spec, perms=perms)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            res[fused] = {"fit": fit, "s": secs, "launches": _read_launches(K, T)}
+        dense, fused = res[False]["fit"], res[True]["fit"]
+        steps = ecfg.n_epochs * STEPS_PER_EPOCH
+        got = res[True]["launches"][f"k2_{kind}"]
+        if got != 2 * steps:
+            raise AssertionError(f"K2-{kind} launched {got} times in the fused fit, "
+                                 f"expected {2 * steps}")
+        if res[False]["launches"][f"k2_{kind}"] != 0:
+            raise AssertionError(f"K2-{kind} launched in the dense fit")
+        for k in ("k1_fwd", "k1_bwd"):
+            if res[True]["launches"][k] < steps:
+                raise AssertionError(f"{k} launched {res[True]['launches'][k]} times in the "
+                                     f"fused fit")
+        loss_d, loss_f = float(dense[3][-1]), float(fused[3][-1])
+        loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+        emb_delta = (fused[0] - dense[0]).abs().max().item()
+        dec_delta = max((fused[1]["heads"][h][k] - dense[1]["heads"][h][k]).abs().max().item()
+                        for h in dense[1]["heads"] for k in dense[1]["heads"][h])
+        utt_s = {f: 1284 * ecfg.n_epochs / res[f]["s"] for f in (False, True)}
+        log(f"[fused] {kind}: final loss dense {loss_d:.6f} fused {loss_f:.6f} (rel "
+            f"{loss_rel:.3e}); max |delta| embeddings {emb_delta:.3e}, decoder "
+            f"{dec_delta:.3e}; utt/s dense {utt_s[False]:.1f} fused {utt_s[True]:.1f}; "
+            f"fused launches {res[True]['launches']}")
+        if not (all(torch.isfinite(t).all() for t in (fused[0], fused[3])) and loss_rel < 1e-3):
+            raise AssertionError(f"fused and dense e2e fits disagree ({kind})")
+        out[kind] = {"launches": res[True]["launches"], "loss_rel": loss_rel,
+                     "utt_s_dense": utt_s[False], "utt_s_fused": utt_s[True]}
+    return out
+
+
 def check_small_agreement(torch) -> None:
-    """Phase 4: a small config on the GPU (kernels) and on the CPU (plain
+    """Phase 7: small configs on the GPU (kernels) and on the CPU (plain
     versions) with the same draws must agree."""
     import numpy as np
 
-    from mmtpu.config import ExperimentConfig
-    from mmtpu.data.pipeline import prepare_device_data
-    from mmtpu.data.synthetic import synthesize_dataset
-    from mmtpu_torch.runner import run_experiment
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.convert import to_torch
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
+    from mmtpu_torch.runner import Draws, build_hp, run_experiment
+    from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
+    from mmtpu_torch.train.latents import train_view
 
     ds = synthesize_dataset("mosi", n_train=70, n_valid=20, n_test=30, vocab_size=200,
                             embed_dim=32, audio_dim=6, visual_dim=5)
@@ -246,6 +468,36 @@ def check_small_agreement(torch) -> None:
                 and emb_abs < 2e-4):
             raise AssertionError(f"GPU and CPU runs disagree ({opt}/{norm})")
 
+    # the fused e2e fit, semi-supervised, with the same draws on both devices
+    n = prep.sif_init["train"].shape[0]
+    smask = (np.arange(n) % 3 != 0).astype(np.float32)
+    for opt, norm in (("sgd", "batch_norm"), ("adam", "layer_norm")):
+        cfg = ExperimentConfig(dataset="mosi", n_epochs=2, batch_size=16, norm=norm,
+                               optimizer=opt, lr=1e-3, likelihood_weight=0.3)
+        fits = {}
+        for dev in ("cuda", "cpu"):
+            draws = Draws(1)
+            move = lambda tree: {k: (move(v) if isinstance(v, dict) else v.to(dev))
+                                 for k, v in tree.items()}
+            dec = move(draws.init_decoder(prep.embed_dim, prep.audio_dim, prep.visual_dim,
+                                          False, prep.text_gauss_dim))
+            sen = move(draws.init_e2e_sentiment(prep.embed_dim, 8, 1))
+            spec = E2EFitSpec(n_epochs_max=2, batch_size=16, unimodal=False, opt_kind=opt,
+                              fused_dec_update=True)
+            fits[dev] = fit_e2e(to_torch(prep.sif_init["train"], dev), dec, sen,
+                                to_torch(train_view(prep.splits["train"]), dev),
+                                to_torch(prep.labels["train"], dev),
+                                to_torch(prep.vocab_embeddings, dev), build_hp(cfg, dev), spec,
+                                senti_mask=to_torch(smask, dev),
+                                perms=draws.train_permutations(n, 2))
+        loss = {dev: float(f[3][-1]) for dev, f in fits.items()}
+        loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        emb_abs = (fits["cuda"][0].cpu() - fits["cpu"][0]).abs().max().item()
+        log(f"[agree] fused e2e {opt}/{norm} GPU vs CPU: final loss rel {loss_rel:.3e}, "
+            f"embeddings max abs {emb_abs:.3e}")
+        if not (np.isfinite(loss["cpu"]) and loss_rel < 2e-4 and emb_abs < 2e-4):
+            raise AssertionError(f"GPU and CPU fused e2e fits disagree ({opt}/{norm})")
+
 
 def main() -> int:
     import torch
@@ -255,6 +507,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import mmtpu_torch.kernels.angular as K
+    import mmtpu_torch.kernels.decoder_update as T
     from mmtpu_torch.kernels import build
 
     dev = torch.device("cuda", 0)
@@ -272,24 +525,47 @@ def main() -> int:
     log(f"[build] kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
 
     k1 = check_kernels(torch, K, dev)
+    k2 = check_k2(torch, T, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        main_run = run_main_path(torch, K, tmp)
+        non_e2e = run_cli_path(torch, K, T, tmp, e2e=False)
+        e2e = run_cli_path(torch, K, T, tmp, e2e=True)
+        fused = run_fused_path(torch, K, T, tmp)
     check_small_agreement(torch)
 
     t = k1["times"]
+    by_path = {"non_e2e": non_e2e["launches"], "e2e": e2e["launches"],
+               "fused_sgd": fused["sgd"]["launches"], "fused_adam": fused["adam"]["launches"]}
+    k1_path = {"fwd": e2e["launches"]["k1_fwd"], "bwd": e2e["launches"]["k1_bwd"]}
     record = {"kernels": [
         {"name": "K1-fwd angular_partition", "route": "cuda",
          "source": "mmtpu_torch/csrc/angular.cu", "replaces": "mmtpu/kernels/angular.py:171",
-         "launches": main_run["launches"]["fwd"], "max_abs_err": k1["fwd_err"],
+         "launches": k1_path["fwd"], "max_abs_err": k1["fwd_err"],
          "ms": t[64]["fwd"], "plain_ms": t[64]["fwd_plain"],
+         "bound_ms": k1["bounds"]["fwd"][0], "bound_by": k1["bounds"]["fwd"][1],
+         "library_ms": None,
          "ms_b512": t[512]["fwd"], "plain_ms_b512": t[512]["fwd_plain"]},
         {"name": "K1-bwd angular_partition", "route": "cuda",
          "source": "mmtpu_torch/csrc/angular.cu", "replaces": "mmtpu/kernels/angular.py:199",
-         "launches": main_run["launches"]["bwd"], "max_abs_err": k1["bwd_err"],
+         "launches": k1_path["bwd"], "max_abs_err": k1["bwd_err"],
          "ms": t[64]["bwd"], "plain_ms": t[64]["bwd_plain"],
+         "bound_ms": k1["bounds"]["bwd"][0], "bound_by": k1["bounds"]["bwd"][1],
+         "library_ms": None,
          "ms_b512": t[512]["bwd"], "plain_ms_b512": t[512]["bwd_plain"]},
-    ], "main_path": {"wall_s": main_run["wall_s"], "train_utt_s": main_run["train_utt_s"],
-                     "final_loss": main_run["final_loss"], "card": smi}}
+    ] + [
+        {"name": f"K2-{kind} fused_gemm_{kind}_update", "route": "cuda",
+         "source": "mmtpu_torch/csrc/decoder_update.cu",
+         "replaces": f"mmtpu/kernels/decoder_update.py:{line}",
+         "launches": fused[kind]["launches"][f"k2_{kind}"], "max_abs_err": k2["err"][kind],
+         "ms": k2["times"][kind]["kernel"], "plain_ms": k2["times"][kind]["plain"],
+         "bound_ms": k2["bounds"][kind][0], "bound_by": k2["bounds"][kind][1],
+         "library_ms": None}
+        for kind, line in (("adam", 166), ("sgd", 210))
+    ], "launches_by_path": by_path,
+        "paths": {"non_e2e": {k: non_e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},
+                  "e2e": {k: e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},
+                  "fused": {k: {m: v[m] for m in ("loss_rel", "utt_s_dense", "utt_s_fused")}
+                            for k, v in fused.items()}},
+        "card": smi}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -5,12 +5,19 @@ stays the reference each module is tested against.  Plain tensor code is
 PyTorch; every Pallas TPU kernel on the ported path is a CUDA C++ kernel
 written for ``sm_90a`` (``mmtpu_torch/csrc``), built from source at first use.
 
-The jax-free parts of ``mmtpu`` are imported, not copied: ``mmtpu.config``
-(experiment configs, the grid) and ``mmtpu.data`` (loading, synthesis, numpy
-preparation).  Nothing here imports jax.
+The port imports neither jax nor ``mmtpu``.  It keeps its own copies of the
+numpy-only parts of ``mmtpu`` that it needs: :mod:`mmtpu_torch.config`
+(experiment configs, the grid) and :mod:`mmtpu_torch.data` (loading,
+synthesis, numpy preparation).
 """
 
 __version__ = "0.1.0"
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a part of mmtpu that the port does not have yet;
+    ``item`` names its entry in ROADMAP.md."""
+    return NotImplementedError(f"{what} is not ported to mmtpu_torch yet (ROADMAP.md: {item})")
 
 
 def __getattr__(name):
@@ -20,11 +27,11 @@ def __getattr__(name):
 
         return run_experiment
     if name == "ExperimentConfig":
-        from mmtpu.config import ExperimentConfig
+        from mmtpu_torch.config import ExperimentConfig
 
         return ExperimentConfig
     if name == "load_dataset":
-        from mmtpu.data import load_dataset
+        from mmtpu_torch.data import load_dataset
 
         return load_dataset
     raise AttributeError(name)

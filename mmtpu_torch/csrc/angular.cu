@@ -325,7 +325,6 @@ size_t bwd_smem_bytes(int d) {
 
 extern "C" {
 
-const char* angular_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 int angular_max_depth() { return MAX_D; }
 int angular_row_tile() { return BM; }
 int angular_vocab_tile() { return BV; }

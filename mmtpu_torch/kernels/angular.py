@@ -103,18 +103,12 @@ def _grid(b: int, v: int, device: torch.device, lib) -> tuple:
     return -(-n_sub // tpc), tpc
 
 
-def _launch(lib, fn: str, err: int) -> None:
-    if err != 0:
-        msg = lib.angular_error_string(err).decode()
-        raise RuntimeError(f"{fn} launch failed: {msg} ({err})")
-
-
 def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor) -> torch.Tensor:
     """``Z`` as ``(B, 1)``; ``vnorm`` is the ``(V,)`` vocab row norms."""
     _check_shapes(latents, vocab, vnorm)
     if _on_cpu(latents):
         return angular_partition_ref(latents, vocab)
-    from mmtpu_torch.kernels.build import load
+    from mmtpu_torch.kernels.build import check_launch, load
 
     _check_cuda(latents, vocab, vnorm)
     lib = load()
@@ -132,7 +126,7 @@ def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor)
         err = lib.angular_fwd(latents.data_ptr(), vocab.data_ptr(), vnorm.data_ptr(),
                               partial.data_ptr(), out.data_ptr(), b, v, d, chunks, tpc,
                               stream)
-    _launch(lib, "angular_fwd", err)
+    check_launch(lib, "angular_fwd", err)
     LAUNCHES["fwd"] += 1
     return out
 
@@ -145,7 +139,7 @@ def angular_bwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor,
         raise ValueError(f"cotangent shape {tuple(g.shape)} != ({latents.shape[0]}, 1)")
     if _on_cpu(latents):
         return angular_partition_bwd_ref(latents, vocab, vnorm, g)
-    from mmtpu_torch.kernels.build import load
+    from mmtpu_torch.kernels.build import check_launch, load
 
     _check_cuda(latents, vocab, vnorm, g)
     lib = load()
@@ -164,7 +158,7 @@ def angular_bwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor,
         err = lib.angular_bwd(latents.data_ptr(), vocab.data_ptr(), vnorm.data_ptr(),
                               g.data_ptr(), partial_dl.data_ptr(), partial_s.data_ptr(),
                               dlat.data_ptr(), b, v, d, chunks, tpc, stream)
-    _launch(lib, "angular_bwd", err)
+    check_launch(lib, "angular_bwd", err)
     LAUNCHES["bwd"] += 1
     return dlat
 

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``mmtpu_torch/csrc/*.cu``).
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes`.  The library is built at
-first use into ``mmtpu_torch/_build/`` (listed in ``.gitignore``) under a
-name keyed by a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses what is there.  A missing ``nvcc`` or a failed build
-raises; nothing falls back.
+with a plain C interface, loaded with :mod:`ctypes`: one ``nvcc -c`` per
+source, all started together, then one link.  The library is built at first
+use into ``mmtpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed
+by a hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses what is there.  A missing ``nvcc`` or a failed build raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -55,22 +56,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmmtpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands side by side; raise with the output of the first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
     """Compile the library unless the hashed target exists; returns its path."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a process loading concurrently never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmpdir, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: a process loading concurrently never sees half a file
     return out
 
 
@@ -87,7 +99,20 @@ def load() -> ctypes.CDLL:
         for fn in ("angular_max_depth", "angular_row_tile", "angular_vocab_tile"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
-        lib.angular_error_string.argtypes = [i]
-        lib.angular_error_string.restype = ctypes.c_char_p
+        lib.cuda_error_string.argtypes = [i]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib.dec_update_adam.argtypes = [vp] * 11 + [i] * 3 + [vp]
+        lib.dec_update_adam.restype = i
+        lib.dec_update_sgd.argtypes = [vp] * 7 + [i] * 3 + [vp]
+        lib.dec_update_sgd.restype = i
+        lib.dec_update_f_tile.argtypes = []
+        lib.dec_update_f_tile.restype = i
         _lib = lib
     return _lib
+
+
+def check_launch(lib: ctypes.CDLL, fn: str, err: int) -> None:
+    """Raise if a launch entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({err})")

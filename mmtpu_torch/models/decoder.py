@@ -6,8 +6,9 @@ diagonal Gaussians, with an optional LayerNorm / train-mode BatchNorm on the
 latent before the heads.  Parameters keep mmtpu's layout,
 ``{"heads": {name: {w_mu, b_mu, w_log_sigma, b_log_sigma}}, "norm": {scale,
 bias}}`` with ``(in, out)`` weights, so :mod:`mmtpu_torch.convert` moves them
-between the packages unchanged.  The stacked layout (``stack_decoder``) serves
-only the fused decoder-update kernel, which is not ported yet.
+between the packages unchanged.  The stacked layout (:func:`stack_decoder`,
+one ``(D, sum F_h)`` weight pair for all heads) is what the fused
+decoder-update kernel K2 (:mod:`mmtpu_torch.kernels.decoder_update`) works on.
 """
 
 from __future__ import annotations
@@ -121,3 +122,55 @@ def apply_decoder(params: Mapping, latents: torch.Tensor, norm_code=NORM_NONE,
         sigma = torch.exp(x @ h["w_log_sigma"] + h["b_log_sigma"])
         out[name] = {"mu": mu, "sigma": sigma}
     return out
+
+
+def is_stacked(params: Mapping) -> bool:
+    """True for the stacked-weight layout (one GEMM for all heads)."""
+    return "w_mu" in params["heads"]
+
+
+def stack_decoder(params: Mapping, pad_to: int = 0):
+    """Per-head dict -> stacked layout: the ``2 n_heads`` linears become one
+    ``(D, sum F_h)`` weight pair (heads in MMB2 order) and the biases one
+    ``(sum F_h,)`` pair.  Returns ``(stacked_params, head_order)``.
+
+    ``pad_to > 0`` zero-pads the stacked feature axis to a multiple of
+    ``pad_to``.  The pad columns are inert: no head reads them, so their
+    gradient is exactly zero and SGD and Adam keep them exactly zero, and
+    :func:`unstack_decoder` drops them.
+    """
+    order = tuple(h for h in MMB2_HEADS if h in params["heads"])
+    hs = params["heads"]
+
+    def cat(k):
+        out = torch.cat([hs[h][k] for h in order], dim=-1)
+        pad = (-out.shape[-1]) % pad_to if pad_to else 0
+        return torch.nn.functional.pad(out, (0, pad)) if pad else out
+
+    stacked = {"heads": {k: cat(k) for k in ("w_mu", "b_mu", "w_log_sigma", "b_log_sigma")},
+               "norm": params["norm"]}
+    return stacked, order
+
+
+def unstack_decoder(stacked: Mapping, head_widths) -> dict:
+    """Inverse of :func:`stack_decoder`; ``head_widths`` is a sequence of
+    ``(head_name, F_h)`` in stack order.  The leaves are copies, not views."""
+    hs = stacked["heads"]
+    out: dict = {"heads": {}, "norm": stacked["norm"]}
+    ofs = 0
+    for name, f in head_widths:
+        out["heads"][name] = {k: hs[k][..., ofs:ofs + f].clone()
+                              for k in ("w_mu", "b_mu", "w_log_sigma", "b_log_sigma")}
+        ofs += f
+    return out
+
+
+def apply_decoder_stacked(params: Mapping, latents: torch.Tensor, norm_code=NORM_NONE,
+                          batch_weights: torch.Tensor | None = None):
+    """Stacked-layout forward: ``(mu_all, sigma_all)``, each ``(B, sum F_h)``
+    (pad columns included); callers slice each head at its offset."""
+    x = apply_norm(latents, params["norm"], norm_code, batch_weights)
+    hs = params["heads"]
+    mu = x @ hs["w_mu"] + hs["b_mu"]
+    sigma = torch.exp(x @ hs["w_log_sigma"] + hs["b_log_sigma"])
+    return mu, sigma

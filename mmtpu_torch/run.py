@@ -2,7 +2,7 @@
 
 Usage::
 
-    python -m mmtpu_torch.run <config.json> {mosi,pom,iemocap} --e2e n
+    python -m mmtpu_torch.run <config.json> {mosi,pom,iemocap} [--e2e {y,n}]
         [--device cuda] [--unimodal] [--pos_embed_dim N] [--batch_size N]
         [--n_runs N] [--semi_sup_idxes 0.1..0.9] [--config_name NAME]
         [--lr_decay F] [--early_stopping] [--sentiment_epochs N]
@@ -16,9 +16,11 @@ compatibility and without effect: ``--cuda``/``--cuda_device`` (use
 ``--device``), ``--pallas`` (the angular partition always runs through the
 port's own kernel wrapper: the CUDA kernel on a CUDA device) and
 ``--precision`` (the port computes in float32 and leaves TF32 at PyTorch's
-default, off for matmuls).  Flags of parts not ported yet (``--e2e y``,
-``--time_test``, ``--validation_curve``, ``--mesh``, ``--lazy_adam``,
-``--resume_dir``, ``--profile``) raise ``NotImplementedError``.
+default, off for matmuls).  ``--e2e`` (or the config's ``e2e`` key, true
+in every grid config) picks the joint fit or the likelihood-only one.  Flags
+of parts not ported yet (``--time_test``, ``--validation_curve``, ``--mesh``,
+``--lazy_adam``, ``--resume_dir``, ``--profile``) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import sys
 
 import numpy as np
 
-from mmtpu.config import ExperimentConfig
+from mmtpu_torch import not_ported
+from mmtpu_torch.config import ExperimentConfig
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -79,8 +82,7 @@ def main(argv=None) -> int:
     from mmtpu_torch.runner import prepare, run_experiment
 
     if args.profile:
-        raise NotImplementedError("--profile is not ported to mmtpu_torch yet "
-                                  "(ROADMAP.md: queue 1, aux)")
+        raise not_ported("--profile", "queue 1, aux")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")

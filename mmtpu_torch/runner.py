@@ -1,14 +1,17 @@
-"""Experiment runner (port of :mod:`mmtpu.runner`), non-e2e mode.
+"""Experiment runner (port of :mod:`mmtpu.runner`).
 
-One run does what mmtpu's does: numpy data preparation (``mmtpu.data``,
-imported, not copied), the training latent fit, the valid/test inference
-fits against the frozen decoder (batch x8, unshuffled), the downstream
-sentiment MLP evaluated before and after training, and the artifacts.
+One run does what mmtpu's does: numpy data preparation
+(:mod:`mmtpu_torch.data`, the port's copy of ``mmtpu.data``), the training
+fit (the e2e joint fit or the likelihood-only latent fit, as the config
+says), the valid/test inference fits against the frozen decoder (batch x8,
+unshuffled), the downstream sentiment MLP evaluated before and after
+training, and the artifacts.
 
 All randomness of a run comes from a :class:`Draws` object: the decoder
-init, the training fit's shuffles, the sentiment init and its shuffles.  The
-default draws from ``torch.Generator(seed + run_idx)``; the parity tests
-pass one that reproduces mmtpu's JAX key splits.
+init, the e2e sentiment init, the training fit's shuffles, the sentiment
+init and its shuffles.  The default draws from
+``torch.Generator(seed + run_idx)``; the parity tests pass one that
+reproduces mmtpu's JAX key splits.
 """
 
 from __future__ import annotations
@@ -20,14 +23,16 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from mmtpu.config import ExperimentConfig
-from mmtpu.data.pipeline import PreparedData, prepare_device_data
-from mmtpu.data.registry import load_dataset
+from mmtpu_torch import not_ported
+from mmtpu_torch.config import ExperimentConfig
 from mmtpu_torch.convert import to_numpy, to_torch
+from mmtpu_torch.data.pipeline import PreparedData, prepare_device_data
+from mmtpu_torch.data.registry import load_dataset
 from mmtpu_torch.eval.report import full_loss, iemocap_loss, pom_loss
 from mmtpu_torch.io.artifacts import ArtifactStore
 from mmtpu_torch.models.decoder import NORM_CODES, init_decoder
 from mmtpu_torch.models.sentiment import apply_sentiment, init_sentiment
+from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
 from mmtpu_torch.train.latents import LatentFitSpec, fit_latents, train_view
 from mmtpu_torch.train.optim import OPT_CODES
 from mmtpu_torch.train.sentiment import SentimentFitSpec, fit_sentiment
@@ -41,6 +46,7 @@ def build_hp(cfg: ExperimentConfig, device) -> Dict:
     return {
         "lr": f32(cfg.lr),
         "word_loss_weight": f32(cfg.word_loss_weight),
+        "likelihood_weight": f32(cfg.likelihood_weight),
         "opt_code": OPT_CODES[cfg.optimizer],
         "norm_code": torch.tensor(NORM_CODES[cfg.norm], device=device),
         "n_epochs": int(cfg.n_epochs),
@@ -92,6 +98,10 @@ class Draws:
     def init_decoder(self, embed_dim, audio_dim, visual_dim, unimodal, text_dim) -> dict:
         return init_decoder(self.gen, embed_dim, audio_dim, visual_dim, unimodal=unimodal,
                             text_dim=text_dim)
+
+    def init_e2e_sentiment(self, embed_dim, hidden_dim, n_out) -> dict:
+        """The sentiment MLP that the e2e fit trains jointly."""
+        return init_sentiment(self.gen, embed_dim, hidden_dim, n_out)
 
     def train_permutations(self, n: int, n_epochs: int) -> list:
         return [torch.randperm(n, generator=self.gen) for _ in range(n_epochs)]
@@ -149,10 +159,6 @@ def _sentiment_phase(cfg: ExperimentConfig, prep: PreparedData, latents: Dict, s
     return {"before": before, "after": after}
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to mmtpu_torch yet (ROADMAP.md: {item})")
-
-
 def run_experiment(
     cfg: ExperimentConfig,
     data_dir: str = ".",
@@ -170,22 +176,20 @@ def run_experiment(
     device,
     draws=None,
 ) -> Dict:
-    """Run one full non-e2e experiment for one config on ``device``.
+    """Run one full experiment for one config on ``device``.
 
     Returns mmtpu's results dict (``config_num``, ``train_time_s``,
     ``final_train_loss``, ``diverged``, ``sentiment``).  A config whose
     final loss or embeddings are not finite is recorded as diverged; the run
     goes on.  ``draws`` defaults to ``Draws(cfg.seed + run_idx)``.
     """
-    if cfg.e2e:
-        raise _not_ported("the e2e fit (e2e: true; pass --e2e n)", "queue 1, e2e fit")
     for flag, what, item in ((mesh is not None, "mesh", "queue 1, parallel"),
                              (resume_dir is not None, "resume_dir", "queue 1, chunked/resume"),
                              (validation_curve, "validation_curve", "queue 1, validation curve"),
                              (lazy_adam, "lazy_adam", "queue 1, lazy Adam"),
                              (time_test, "time_test", "queue 1, closed form and serving")):
         if flag:
-            raise _not_ported(what, item)
+            raise not_ported(what, item)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
@@ -212,17 +216,33 @@ def run_experiment(
     t_train_start = time.time()
     semi_mask = semi_sup_mask(cfg.dataset, cfg.semi_sup_idxes, prep.labels["train"].shape[0],
                               seed=cfg.seed, data_dir=data_dir)
-    spec = LatentFitSpec(
-        n_epochs_max=cfg.n_epochs,
-        batch_size=cfg.batch_size,
-        train_decoder=not cfg.freeze_weights,
-        unimodal=cfg.unimodal,
-        word_metric=cfg.word_sim_metric,
-        opt_kind=cfg.optimizer,
-    )
-    perms = draws.train_permutations(init["train"].shape[0], cfg.n_epochs)
-    train_embed, decoder, train_losses = fit_latents(
-        init["train"], decoder, split["train"], vocab, hp, spec, perms=perms)
+    if cfg.e2e:
+        labels = to_torch(prep.labels["train"], device)
+        n_out = 1 if labels.ndim == 1 else labels.shape[-1]
+        senti0 = _to_device(draws.init_e2e_sentiment(prep.embed_dim, cfg.sentiment_hidden_size,
+                                                     n_out), device)
+        espec = E2EFitSpec(n_epochs_max=cfg.n_epochs, batch_size=cfg.batch_size,
+                           unimodal=cfg.unimodal, word_metric=cfg.word_sim_metric,
+                           opt_kind=cfg.optimizer)
+        # e2e freeze_weights: the heads freeze, the norm still trains
+        e2e_hp = dict(hp, train_heads=torch.tensor(float(not cfg.freeze_weights),
+                                                   device=device))
+        perms = draws.train_permutations(init["train"].shape[0], cfg.n_epochs)
+        train_embed, decoder, _, train_losses = fit_e2e(
+            init["train"], decoder, senti0, split["train"], labels, vocab, e2e_hp, espec,
+            senti_mask=None if semi_mask is None else to_torch(semi_mask, device), perms=perms)
+    else:
+        spec = LatentFitSpec(
+            n_epochs_max=cfg.n_epochs,
+            batch_size=cfg.batch_size,
+            train_decoder=not cfg.freeze_weights,
+            unimodal=cfg.unimodal,
+            word_metric=cfg.word_sim_metric,
+            opt_kind=cfg.optimizer,
+        )
+        perms = draws.train_permutations(init["train"].shape[0], cfg.n_epochs)
+        train_embed, decoder, train_losses = fit_latents(
+            init["train"], decoder, split["train"], vocab, hp, spec, perms=perms)
 
     # inference = the fit with the decoder frozen; valid/test are unshuffled
     # at batch_size*8 (simplesif.py:458-459)
@@ -262,6 +282,7 @@ def run_experiment(
         "diverged": diverged,
     }
     latents = {"train": train_embed, "valid": valid_embed, "test": test_embed}
+    # semi-sup subsetting applies in both modes (simplesif.py:910-912)
     results["sentiment"] = _sentiment_phase(cfg, prep, latents, store, "post", draws, device,
                                             train_idxes=semi_mask, verbose=verbose)
     return results

@@ -1,0 +1,176 @@
+"""End-to-end (e2e) training (port of :mod:`mmtpu.train.e2e`): the joint
+likelihood and a supervised L1 objective under one optimizer law for the
+train embeddings, the decoder and the sentiment MLP, per sample
+
+    likelihood_weight * (-log p) + (1 - likelihood_weight) * L1(sentiment)
+
+(``simplesif.py:786``).  With a semi-supervised ``senti_mask`` the L1 term of
+unlabeled rows is zeroed and the batch mean still divides by every valid row,
+the reference's quirk (``simplesif.py:779-784``).  Valid/test latents are
+still fit likelihood-only by :func:`mmtpu_torch.train.latents.fit_latents`.
+
+The epochs run in permuted space as in the latent fit (sparse SGD rows, dense
+stale-momentum Adam, padded last batch).  ``hp["train_heads"] = 0`` freezes
+the generator heads only while the norm keeps training (the reference's e2e
+``freeze_weights``, ``simplesif.py:689-691``, ``models.py:170-178``).  With
+``fused_dec_update`` the decoder weights update in kernel K2
+(:func:`mmtpu_torch.train.fused.fused_joint_step`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import torch
+
+from mmtpu_torch import not_ported
+from mmtpu_torch.models.decoder import is_stacked
+from mmtpu_torch.models.sentiment import apply_sentiment
+from mmtpu_torch.train.latents import (
+    LatentFitSpec,
+    dense_adam_rows,
+    epoch_permutation,
+    finish_fit_decoder,
+    joint_neg_log_prob_per_sample,
+    sparse_sgd_rows,
+    start_fit_decoder,
+)
+from mmtpu_torch.train.optim import OPT_KINDS, OptState, init_opt_state, opt_update
+from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class E2EFitSpec:
+    """Static configuration of an e2e fit (the fields of
+    :class:`mmtpu.train.e2e.E2EFitSpec` that this port runs; the others raise)."""
+
+    n_epochs_max: int
+    batch_size: int  # the multimodal loader's batch (cfg.batch_size)
+    unimodal: bool
+    word_metric: str = "angular"
+    shuffle: bool = True
+    opt_kind: str | None = None  # "sgd" | "adam"; None: from hp["opt_code"]
+    valid_every: int = 0  # recursive validation: not ported
+    batch_shard_axis: str | None = None  # multi-device rows: not ported
+    stacked_heads: bool = False
+    lazy_adam: bool = False  # not ported
+    fused_dec_update: bool = False
+
+    def latent_spec(self) -> LatentFitSpec:
+        return LatentFitSpec(n_epochs_max=self.n_epochs_max, batch_size=self.batch_size,
+                             train_decoder=True, unimodal=self.unimodal,
+                             word_metric=self.word_metric, shuffle=self.shuffle,
+                             opt_kind=self.opt_kind, stacked_heads=self.stacked_heads,
+                             fused_dec_update=self.fused_dec_update)
+
+
+def senti_l1(sen, lat, y, mask) -> torch.Tensor:
+    """Per-sample L1 error of the sentiment MLP, ``(B,)``: unlabeled rows
+    (``mask`` 0) are zeroed before the mean over the outputs."""
+    err = torch.abs(apply_sentiment(sen, lat) - y)
+    if mask is not None:
+        err = err * (mask if err.ndim == mask.ndim else mask[..., None])
+    if err.ndim > 1:
+        err = torch.mean(err, dim=tuple(range(1, err.ndim)))
+    return err
+
+
+def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mapping,
+            labels: torch.Tensor, vocab_emb: torch.Tensor, hp: Mapping, spec: E2EFitSpec,
+            senti_mask: torch.Tensor | None = None, generator: torch.Generator | None = None,
+            perms: Sequence | None = None):
+    """The joint fit; returns ``(embed, decoder_params, senti_params, losses)``.
+
+    hp: as :func:`mmtpu_torch.train.latents.fit_latents` plus
+    ``likelihood_weight`` and optionally ``train_heads``.  ``senti_mask`` is
+    the per-utterance 0/1 labeled mask (None: fully supervised).  ``perms``,
+    one permutation per epoch, replaces the draws from ``generator``.
+    """
+    if spec.valid_every > 0:
+        raise not_ported("recursive validation (valid_every > 0)", "queue 1, validation curve")
+    if spec.lazy_adam:
+        raise not_ported("lazy Adam", "queue 1, lazy Adam")
+    if spec.batch_shard_axis is not None:
+        raise not_ported("batch_shard_axis", "queue 1, parallel")
+    lspec = spec.latent_spec()
+    device = init_embed.device
+    kind = spec.opt_kind or OPT_KINDS[int(hp["opt_code"])]
+    n = init_embed.shape[0]
+    bsz = spec.batch_size
+    n_batches = -(-n // bsz)
+    pad = n_batches * bsz - n
+    valid = torch.cat([torch.ones(n, device=device), torch.zeros(pad, device=device)])
+    valid = valid.reshape(n_batches, bsz)
+    pad_idx = torch.zeros(pad, dtype=torch.long, device=device)
+    lr, lw = hp["lr"], hp["likelihood_weight"]
+    heads_gate = hp["train_heads"] if "train_heads" in hp else None
+
+    embed = init_embed.detach().to(torch.float32).clone()
+    was_stacked = is_stacked(decoder_params)
+    dec = start_fit_decoder(decoder_params, lspec)
+    sen = tree_map(torch.Tensor.detach, senti_params)
+    e_opt = init_opt_state(embed, kind)
+    d_opt = init_opt_state(dec, kind)
+    s_opt = init_opt_state(sen, kind)
+    dec_gates = None
+    if heads_gate is not None:
+        dec_gates = {"heads": tree_map(lambda _: heads_gate, dec["heads"]),
+                     "norm": tree_map(lambda _: 1.0, dec["norm"])}
+
+    losses = []
+    for epoch in range(spec.n_epochs_max):
+        active = epoch < int(hp["n_epochs"])
+        perm = epoch_permutation(epoch, n, spec, device, generator, perms)
+        idx = torch.cat([perm, pad_idx])
+        embp = embed[idx]
+        if kind == "adam":
+            e_opt = OptState(m=e_opt.m[idx], v=e_opt.v[idx], count=e_opt.count)
+        new_rows, batch_losses = [], []
+        for s in range(n_batches):
+            lo, hi = s * bsz, (s + 1) * bsz
+            j = idx[lo:hi]
+            b = {k: v[j] for k, v in data.items()}
+            y = labels[j]
+            mask = None if senti_mask is None else senti_mask[j]
+            if spec.fused_dec_update:
+                from mmtpu_torch.train.fused import fused_joint_step
+
+                loss, g_rows, g_sen, dec, d_opt = fused_joint_step(
+                    dec, d_opt, embp[lo:hi], b, vocab_emb, hp, lspec, valid[s], active,
+                    heads_gate=1.0 if heads_gate is None else heads_gate, norm_gate=1.0,
+                    extra_params=sen,
+                    combine=lambda sp, neg, lat: lw * neg + (1.0 - lw) * senti_l1(sp, lat, y,
+                                                                                  mask))
+            else:
+                rows = embp[lo:hi].detach().requires_grad_()
+                dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
+                sen = tree_map(lambda t: t.detach().requires_grad_(), sen)
+                neg = joint_neg_log_prob_per_sample(dec, rows, b, vocab_emb, hp, lspec, valid[s])
+                per_sample = lw * neg + (1.0 - lw) * senti_l1(sen, rows, y, mask)
+                loss = torch.sum(per_sample * valid[s]) / torch.clamp_min(torch.sum(valid[s]),
+                                                                          1.0)
+                dec_leaves, sen_leaves = tree_leaves(dec), tree_leaves(sen)
+                grads = torch.autograd.grad(loss, [rows] + dec_leaves + sen_leaves)
+                g_rows = grads[0]
+                g_dec = tree_unflatten(dec, grads[1:1 + len(dec_leaves)])
+                g_sen = tree_unflatten(sen, grads[1 + len(dec_leaves):])
+                dec = tree_map(torch.Tensor.detach, dec)
+                sen = tree_map(torch.Tensor.detach, sen)
+                dec, d_opt = opt_update(dec, g_dec, d_opt, lr, None, active, kind=kind,
+                                        gates=dec_gates)
+            sen, s_opt = opt_update(sen, g_sen, s_opt, lr, None, active, kind=kind)
+            with torch.no_grad():
+                if kind == "sgd":
+                    new_rows.append(sparse_sgd_rows(embp[lo:hi], g_rows, lr, active))
+                else:
+                    embp, e_opt = dense_adam_rows(embp, e_opt, lo, hi, g_rows, lr, active)
+            batch_losses.append(loss.detach())
+        emb_out = torch.cat(new_rows) if kind == "sgd" else embp
+        inv = torch.argsort(perm)
+        embed = emb_out[:n][inv]
+        if kind == "adam":
+            e_opt = OptState(m=e_opt.m[:n][inv], v=e_opt.v[:n][inv], count=e_opt.count)
+        losses.append(torch.sum(torch.stack(batch_losses)))
+    return (embed, finish_fit_decoder(dec, data, lspec, was_stacked), sen,
+            torch.stack(losses))

@@ -14,6 +14,12 @@ batch's rows; Adam is dense, so every row takes a step every step.  At the
 end of the epoch the pad rows (duplicates of row 0) are sliced off *before*
 the permutation is inverted, so a pad row never overwrites row 0's update.
 
+The decoder may travel in the stacked layout
+(``LatentFitSpec.stacked_heads``, or ``fused_dec_update``, whose steps run
+the fused decoder-update kernel K2 through
+:func:`mmtpu_torch.train.fused.fused_joint_step`): it is stacked once at fit
+entry and restored to the per-head dict on return.
+
 Data dict convention: as mmtpu's (``text_ids``, ``text_weights``,
 ``text_mask`` and either the raw streams with masks or their sufficient
 statistics ``<stream>_s0/s1/s2``), as tensors on the fit's device.  The
@@ -27,8 +33,18 @@ from typing import Mapping, Sequence
 
 import torch
 
-from mmtpu_torch.models.decoder import MMB1_HEADS, MMB2_HEADS, apply_decoder, head_segments
+from mmtpu_torch.models.decoder import (
+    MMB1_HEADS,
+    MMB2_HEADS,
+    apply_decoder,
+    apply_decoder_stacked,
+    head_segments,
+    is_stacked,
+    stack_decoder,
+    unstack_decoder,
+)
 from mmtpu_torch.ops.gaussian import gaussian_logpdf_masked, gaussian_logpdf_suffstats
+from mmtpu_torch.ops.joint import weighted_joint
 from mmtpu_torch.ops.wordprob import word_logprob_angular, word_logprob_dot_prod
 from mmtpu_torch.train.optim import OPT_KINDS, OptState, init_opt_state, opt_update
 from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -46,6 +62,12 @@ class LatentFitSpec:
     word_metric: str = "angular"  # 'angular' | 'dot_prod'
     shuffle: bool = True
     opt_kind: str | None = None  # "sgd" | "adam"; None: from hp["opt_code"]
+    # the decoder travels stacked: one wide GEMM per step (same math per
+    # output column); restored to the per-head dict on return
+    stacked_heads: bool = False
+    # stacked, and each training step's decoder-weight update runs in the
+    # fused kernel K2 (mmtpu_torch.train.fused); needs a static opt_kind
+    fused_dec_update: bool = False
 
 
 def _word_logprob(spec: LatentFitSpec, latents, vocab_emb, b):
@@ -97,16 +119,37 @@ def _head_log_prob(head: str, mu, sigma, b) -> torch.Tensor:
     return total
 
 
+def stacked_head_log_probs(spec, mu_all, sigma_all, b) -> list:
+    """Per-head log-probs from the stacked ``(B, sum F_h)`` mu/sigma, each head
+    sliced at its offset; pad columns past the heads are never read."""
+    head_lp, ofs = [], 0
+    for h in (MMB1_HEADS if spec.unimodal else MMB2_HEADS):
+        f = head_width(h, b)
+        head_lp.append(_head_log_prob(h, mu_all[:, ofs:ofs + f], sigma_all[:, ofs:ofs + f], b))
+        ofs += f
+    if ofs > mu_all.shape[-1]:
+        raise ValueError(f"stacked decoder is {mu_all.shape[-1]} wide, the heads need {ofs}")
+    return head_lp
+
+
+def neg_joint(head_lp: list, word_lp, hp) -> torch.Tensor:
+    """The negative weighted joint log-likelihood at ``hp["word_loss_weight"]``."""
+    return -weighted_joint(head_lp, word_lp, hp["word_loss_weight"])
+
+
 def joint_neg_log_prob_per_sample(decoder_params, lat, b, vocab_emb, hp, spec: LatentFitSpec,
                                   row_valid=None) -> torch.Tensor:
-    """Per-sample negative weighted joint log-likelihood ``(B,)``."""
+    """Per-sample negative weighted joint log-likelihood ``(B,)``, for either
+    decoder layout (per-head or stacked)."""
     word_lp = _word_logprob(spec, lat, vocab_emb, b)
+    if is_stacked(decoder_params):
+        mu_all, sigma_all = apply_decoder_stacked(decoder_params, lat, hp["norm_code"],
+                                                  batch_weights=row_valid)
+        return neg_joint(stacked_head_log_probs(spec, mu_all, sigma_all, b), word_lp, hp)
     heads = MMB1_HEADS if spec.unimodal else MMB2_HEADS
     out = apply_decoder(decoder_params, lat, hp["norm_code"], batch_weights=row_valid)
     head_lp = [_head_log_prob(h, out[h]["mu"], out[h]["sigma"], b) for h in heads]
-    w = hp["word_loss_weight"]
-    other = (1.0 - w) / len(head_lp)
-    return -(sum(head_lp) * other + w * word_lp)
+    return neg_joint(head_lp, word_lp, hp)
 
 
 def batch_neg_log_prob(embed_batch, decoder_params, b, vocab_emb, hp, spec: LatentFitSpec,
@@ -128,6 +171,48 @@ def train_view(data: Mapping) -> dict:
     return {k: v for k, v in data.items() if k not in drop}
 
 
+def start_fit_decoder(decoder_params, spec) -> dict:
+    """The decoder as a fit carries it: detached, and stacked when the spec
+    asks for the stacked layout (no padding: the fused kernel masks its
+    ragged edge itself)."""
+    dec = tree_map(torch.Tensor.detach, decoder_params)
+    if (spec.stacked_heads or spec.fused_dec_update) and not is_stacked(dec):
+        dec, _ = stack_decoder(dec)
+    return dec
+
+
+def finish_fit_decoder(dec, data, spec, was_stacked: bool) -> dict:
+    """Restore the per-head decoder dict after a fit that stacked it."""
+    if was_stacked or not is_stacked(dec):
+        return dec
+    heads = MMB1_HEADS if spec.unimodal else MMB2_HEADS
+    return unstack_decoder(dec, [(h, head_width(h, data)) for h in heads])
+
+
+def epoch_permutation(epoch: int, n: int, spec, device, generator=None,
+                      perms: Sequence | None = None) -> torch.Tensor:
+    """The epoch's row order: the injected permutation, a draw from
+    ``generator`` when shuffling, else the identity."""
+    if perms is not None:
+        return torch.as_tensor(perms[epoch], dtype=torch.long, device=device)
+    if spec.shuffle:
+        return torch.randperm(n, generator=generator).to(device)
+    return torch.arange(n, device=device)
+
+
+def sparse_sgd_rows(rows, g_rows, lr, active):
+    """The SGD step of one batch's rows (the rows of no other batch move)."""
+    return rows.detach() - lr * g_rows if active else rows.detach()
+
+
+def dense_adam_rows(embp, e_opt, lo, hi, g_rows, lr, active):
+    """The dense Adam step of the permuted table: every row moves, the
+    batch's rows with their gradient and the others by stale momentum."""
+    g_full = torch.zeros_like(embp)
+    g_full[lo:hi] = g_rows
+    return opt_update(embp, g_full, e_opt, lr, None, active, kind="adam")
+
+
 def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_emb: torch.Tensor,
                 hp: Mapping, spec: LatentFitSpec, generator: torch.Generator | None = None,
                 perms: Sequence | None = None):
@@ -145,6 +230,7 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     """
     device = init_embed.device
     kind = spec.opt_kind or OPT_KINDS[int(hp["opt_code"])]
+    fused = spec.train_decoder and spec.fused_dec_update
     n, _ = init_embed.shape
     bsz = spec.batch_size
     n_batches = -(-n // bsz)
@@ -154,19 +240,20 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     pad_idx = torch.zeros(pad, dtype=torch.long, device=device)
     lr = hp["lr"]
 
+    # hp["train_dec"] = 0 freezes the WHOLE decoder, norm included
+    # (simplesif.py:55-56): the non-e2e freeze semantics
+    dec_gate = hp["train_dec"] if "train_dec" in hp else None
+
     embed = init_embed.detach().to(torch.float32).clone()
-    dec = tree_map(torch.Tensor.detach, decoder_params)
+    was_stacked = is_stacked(decoder_params)
+    dec = start_fit_decoder(decoder_params, spec)
     e_opt = init_opt_state(embed, kind)
     d_opt = init_opt_state(dec, kind) if spec.train_decoder else None
+    dec_gates = None if dec_gate is None else tree_map(lambda _: dec_gate, dec)
     losses = []
     for epoch in range(spec.n_epochs_max):
         active = epoch < int(hp["n_epochs"])
-        if perms is not None:
-            perm = torch.as_tensor(perms[epoch], dtype=torch.long, device=device)
-        elif spec.shuffle:
-            perm = torch.randperm(n, generator=generator).to(device)
-        else:
-            perm = torch.arange(n, device=device)
+        perm = epoch_permutation(epoch, n, spec, device, generator, perms)
         idx = torch.cat([perm, pad_idx])
         embp = embed[idx]
         if kind == "adam":
@@ -175,24 +262,30 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
         for s in range(n_batches):
             lo, hi = s * bsz, (s + 1) * bsz
             b = {k: v[idx[lo:hi]] for k, v in data.items()}
-            rows = embp[lo:hi].detach().requires_grad_()
-            if spec.train_decoder:
-                dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
-            loss = batch_neg_log_prob(rows, dec, b, vocab_emb, hp, spec, valid[s])
-            wrt = [rows] + (tree_leaves(dec) if spec.train_decoder else [])
-            grads = torch.autograd.grad(loss, wrt)
-            g_rows = grads[0]
-            if spec.train_decoder:
-                dec = tree_map(torch.Tensor.detach, dec)
-                dec, d_opt = opt_update(dec, tree_unflatten(dec, grads[1:]), d_opt, lr,
-                                        None, active, kind=kind)
+            if fused:
+                from mmtpu_torch.train.fused import fused_joint_step
+
+                gate = 1.0 if dec_gate is None else dec_gate
+                loss, g_rows, _, dec, d_opt = fused_joint_step(
+                    dec, d_opt, embp[lo:hi], b, vocab_emb, hp, spec, valid[s], active,
+                    heads_gate=gate, norm_gate=gate)
+            else:
+                rows = embp[lo:hi].detach().requires_grad_()
+                if spec.train_decoder:
+                    dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
+                loss = batch_neg_log_prob(rows, dec, b, vocab_emb, hp, spec, valid[s])
+                wrt = [rows] + (tree_leaves(dec) if spec.train_decoder else [])
+                grads = torch.autograd.grad(loss, wrt)
+                g_rows = grads[0]
+                if spec.train_decoder:
+                    dec = tree_map(torch.Tensor.detach, dec)
+                    dec, d_opt = opt_update(dec, tree_unflatten(dec, grads[1:]), d_opt, lr,
+                                            None, active, kind=kind, gates=dec_gates)
             with torch.no_grad():
                 if kind == "sgd":
-                    new_rows.append(rows.detach() - lr * g_rows if active else rows.detach())
+                    new_rows.append(sparse_sgd_rows(embp[lo:hi], g_rows, lr, active))
                 else:
-                    g_full = torch.zeros_like(embp)
-                    g_full[lo:hi] = g_rows
-                    embp, e_opt = opt_update(embp, g_full, e_opt, lr, None, active, kind=kind)
+                    embp, e_opt = dense_adam_rows(embp, e_opt, lo, hi, g_rows, lr, active)
             batch_losses.append(loss.detach())
         emb_out = torch.cat(new_rows) if kind == "sgd" else embp
         inv = torch.argsort(perm)
@@ -200,4 +293,4 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
         if kind == "adam":
             e_opt = OptState(m=e_opt.m[:n][inv], v=e_opt.v[:n][inv], count=e_opt.count)
         losses.append(torch.sum(torch.stack(batch_losses)))
-    return embed, dec, torch.stack(losses)
+    return embed, finish_fit_decoder(dec, data, spec, was_stacked), torch.stack(losses)

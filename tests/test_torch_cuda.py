@@ -4,9 +4,9 @@ This file imports no jax, so it also runs on a GPU machine without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: kernel forward rtol 1e-5 and backward atol 1e-5 against the
-plain versions (the TPU kernel's tests); a small fit on the card against the
-same fit on the CPU at the parity tests' 2e-4.
+Tolerances: K1 forward rtol 1e-5 and backward atol 1e-5, K2 rtol 1e-5 /
+atol 1e-5, against the plain versions (the TPU kernels' tests); small fits on
+the card against the same fits on the CPU at the parity tests' 2e-4.
 """
 
 import numpy as np
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import mmtpu_torch.kernels.angular as K
+import mmtpu_torch.kernels.decoder_update as T
 
 
 @pytest.fixture
@@ -64,9 +65,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.cuda
 def test_small_run_matches_cpu(cuda_device, tmp_path):
     """A small experiment on the card (kernels) against the CPU (plain)."""
-    from mmtpu.config import ExperimentConfig
-    from mmtpu.data.pipeline import prepare_device_data
-    from mmtpu.data.synthetic import synthesize_dataset
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
     from mmtpu_torch.runner import run_experiment
 
     ds = synthesize_dataset("mosi", n_train=40, n_valid=10, n_test=12, vocab_size=100,
@@ -83,3 +84,74 @@ def test_small_run_matches_cpu(cuda_device, tmp_path):
     emb = [np.load(tmp_path / dev / "card" / "config_0_run_0" / "post" / "embed.npy")
            for dev in res]
     np.testing.assert_allclose(emb[0], emb[1], atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,f", [(64, 300, 1400), (37, 300, 37), (5, 7, 300)])
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_k2_matches_plain(cuda_device, kind, b, d, f):
+    """K2 against its plain version with flag 1 and flag 0 (w, m, v then come
+    back bit for bit): the train batch's shape and ragged ones."""
+    gen = torch.Generator().manual_seed(2)
+    r = lambda *s: torch.randn(*s, generator=gen).to(cuda_device)
+    # every output table far above atol 1e-5, so an error in any element shows
+    w, m, v, x, gz = 0.05 * r(d, f), 0.1 * r(d, f), 0.01 * (1.0 + r(d, f).abs()), r(b, d), r(b, f)
+    lr = torch.tensor(1e-3, device=cuda_device)
+    for on in (1.0, 0.0):
+        flag = torch.tensor(on, device=cuda_device)
+        before = dict(T.LAUNCHES)
+        if kind == "adam":
+            args = (w, m, v, x, gz, lr, 0.41, 0.005, flag)
+            got, want = T.fused_gemm_adam_update(*args), T.reference_adam(*args)
+            tables = (w, m, v)
+        else:
+            got, want = (T.fused_gemm_sgd_update(w, x, gz, lr, flag),
+                         T.reference_sgd(w, x, gz, lr, flag))
+            tables = (w,)
+        torch.cuda.synchronize()
+        assert T.LAUNCHES[kind] == before[kind] + 1
+        for g, p, t in zip(got[:-1], want[:-1], tables):
+            torch.testing.assert_close(g, p, rtol=1e-5, atol=1e-5)
+            if on == 0.0:
+                assert torch.equal(g, t)
+        torch.testing.assert_close(got[-1], want[-1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sgd", "adam"])
+def test_fused_fit_e2e_matches_cpu(cuda_device, kind):
+    """One epoch of the fused e2e fit on the card (K1 and K2) against the
+    same fit on the CPU (plain versions)."""
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.convert import to_torch
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
+    from mmtpu_torch.runner import Draws, build_hp
+    from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
+    from mmtpu_torch.train.latents import train_view
+
+    prep = prepare_device_data(synthesize_dataset(
+        "mosi", n_train=40, n_valid=10, n_test=12, vocab_size=100, embed_dim=16, audio_dim=6,
+        visual_dim=5), pos_embed_dim=2)
+    cfg = ExperimentConfig(dataset="mosi", n_epochs=1, batch_size=8, norm="layer_norm",
+                           optimizer=kind, lr=1e-3, likelihood_weight=0.3)
+    spec = E2EFitSpec(n_epochs_max=1, batch_size=8, unimodal=False, opt_kind=kind,
+                      fused_dec_update=True)
+    fits = []
+    for dev in (cuda_device, torch.device("cpu")):
+        draws = Draws(0)
+        move = lambda tree: {k: (move(v) if isinstance(v, dict) else v.to(dev))
+                             for k, v in tree.items()}
+        dec = move(draws.init_decoder(16, prep.audio_dim, prep.visual_dim, False,
+                                      prep.text_gauss_dim))
+        sen = move(draws.init_e2e_sentiment(16, 8, 1))
+        before = T.LAUNCHES[kind]
+        fits.append(fit_e2e(to_torch(prep.sif_init["train"], dev), dec, sen,
+                            to_torch(train_view(prep.splits["train"]), dev),
+                            to_torch(prep.labels["train"], dev),
+                            to_torch(prep.vocab_embeddings, dev), build_hp(cfg, dev), spec,
+                            perms=draws.train_permutations(40, 1)))
+        assert T.LAUNCHES[kind] == before + (2 * 5 if dev.type == "cuda" else 0)
+    card, cpu = fits
+    np.testing.assert_allclose(card[3].cpu().numpy(), cpu[3].numpy(), rtol=2e-4)
+    np.testing.assert_allclose(card[0].cpu().numpy(), cpu[0].numpy(), atol=2e-4)

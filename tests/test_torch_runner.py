@@ -1,11 +1,13 @@
 """The port's slice as a whole against mmtpu's: ``run_experiment`` (non-e2e)
 on a tiny synthetic MOSI, fed the draws mmtpu makes from its JAX keys; the
-artifact contract; the CLI; and the proof that the port runs without jax.
+artifact contract; the CLI; and the proof that the port imports neither jax
+nor mmtpu.  (The e2e runs: tests/test_torch_e2e.py.)
 
 Tolerances: final loss rtol 2e-4, post embeddings and test predictions
 atol 2e-4 (tests/test_train_parity.py's, for float32 in another order).
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -48,16 +50,20 @@ def _perms(key, n, n_epochs):
 
 class JaxDraws:
     """The draws of ``mmtpu.runner.run_experiment`` from its JAX key splits
-    (runner.py:220-221; the sentiment split at train/sentiment.py:103-104)."""
+    (runner.py:220-221; the e2e sentiment init at runner.py:246-248; the
+    sentiment split at train/sentiment.py:103-104)."""
 
     def __init__(self, seed):
-        k_dec, _, k_fit, _, _, k_sent = jax.random.split(jax.random.key(seed), 6)
-        self.k_dec, self.k_fit = k_dec, k_fit
+        k_dec, k_e2e, k_fit, _, _, k_sent = jax.random.split(jax.random.key(seed), 6)
+        self.k_dec, self.k_e2e, self.k_fit = k_dec, k_e2e, k_fit
         self.k_sinit, self.k_sfit = jax.random.split(k_sent)
 
     def init_decoder(self, embed_dim, audio_dim, visual_dim, unimodal, text_dim):
         return to_torch(j_init_decoder(self.k_dec, embed_dim, audio_dim, visual_dim,
                                        unimodal=unimodal, text_dim=text_dim))
+
+    def init_e2e_sentiment(self, embed_dim, hidden_dim, n_out):
+        return to_torch(j_init_sentiment(self.k_e2e, embed_dim, hidden_dim, n_out))
 
     def train_permutations(self, n, n_epochs):
         return _perms(self.k_fit, n, n_epochs)
@@ -150,9 +156,6 @@ def test_unported_options_raise(kw):
     cfg = ExperimentConfig(dataset="mosi", e2e=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trunner.run_experiment(cfg, prep=_tiny_prep(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="e2e"):
-        trunner.run_experiment(ExperimentConfig(dataset="mosi", e2e=True),
-                               prep=_tiny_prep(), device="cpu")
 
 
 def _cfg_file(tmp_path, **kw):
@@ -176,7 +179,7 @@ def test_cli_main_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--device", "cuda", "--e2e", "n"], RuntimeError),
-    (["--device", "cpu"], NotImplementedError),  # the config says e2e: true
+    (["--device", "cpu", "--validation_curve"], NotImplementedError),
     (["--device", "cpu", "--e2e", "n", "--profile"], NotImplementedError),
 ])
 def test_cli_refuses(tmp_path, monkeypatch, argv, exc):
@@ -188,24 +191,27 @@ def test_cli_refuses(tmp_path, monkeypatch, argv, exc):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """In a process where jax cannot be imported, the port and the parts of
-    mmtpu it reuses (config, data) import and run a tiny experiment."""
+    """In a process where neither jax nor mmtpu can be imported, the port
+    imports and runs a tiny experiment, non-e2e and e2e."""
     code = f"""
 import sys
 sys.modules["jax"] = None
+sys.modules["mmtpu"] = None
 import mmtpu_torch, mmtpu_torch.runner, mmtpu_torch.run, mmtpu_torch.kernels.angular
-from mmtpu.config import ExperimentConfig
-from mmtpu.data.pipeline import prepare_device_data
-from mmtpu.data.synthetic import synthesize_dataset
+import mmtpu_torch.kernels.decoder_update, mmtpu_torch.train.fused, mmtpu_torch.ops.joint
+from mmtpu_torch.config import ExperimentConfig
+from mmtpu_torch.data.pipeline import prepare_device_data
+from mmtpu_torch.data.synthetic import synthesize_dataset
 ds = synthesize_dataset("mosi", n_train=12, n_valid=5, n_test=6, vocab_size=30,
                         embed_dim=8, audio_dim=4, visual_dim=3)
 prep = prepare_device_data(ds, pos_embed_dim=2)
-cfg = ExperimentConfig(dataset="mosi", n_epochs=1, n_sentiment_epochs=1, batch_size=5,
-                       e2e=False, config_name="nojax")
-res = mmtpu_torch.runner.run_experiment(cfg, out_root={str(tmp_path)!r}, prep=prep,
-                                        verbose=False, device="cpu")
-assert res["final_train_loss"] == res["final_train_loss"]
-assert sys.modules["jax"] is None
+for e2e in (False, True):
+    cfg = ExperimentConfig(dataset="mosi", n_epochs=1, n_sentiment_epochs=1, batch_size=5,
+                           e2e=e2e, config_name="nojax")
+    res = mmtpu_torch.runner.run_experiment(cfg, out_root={str(tmp_path)!r}, prep=prep,
+                                            verbose=False, device="cpu")
+    assert res["final_train_loss"] == res["final_train_loss"]
+assert sys.modules["jax"] is None and sys.modules["mmtpu"] is None
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -213,3 +219,26 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def _imported_modules(path):
+    """Top-level module names of every import statement in a source file."""
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_port_sources_import_neither_jax_nor_mmtpu():
+    """Every module of the port and chip_smoke.py, parsed: no import of jax
+    or mmtpu anywhere, at top level or inside a function."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "mmtpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 25
+    bad = {p: n & {"jax", "jaxlib", "mmtpu"} for p in paths if (n := _imported_modules(p))
+           & {"jax", "jaxlib", "mmtpu"}}
+    assert not bad, bad
