@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    source, side by side; timed);
 2. kernel K1 (angular partition, forward and backward) against its plain
    PyTorch versions at the main path's shapes, plus a ragged shape and a
-   zero latent row; kernel and plain times at 64 and 512 rows (device time
-   per call from queued bursts, and the median of single calls);
+   zero latent row, with the backward called twice and required bit for bit
+   equal; kernel and plain times at 64 and 512 rows (device time per call
+   from queued bursts, and the median of single calls) and the bounds at
+   both;
 3. kernel K2 (fused decoder update, Adam and SGD) against its plain versions
    at (B, D, F) = (64, 300, 1400), (64, 300, 1536), (512, 300, 1416) and a
    ragged (37, 300, 37), with flag 1 and flag 0; times at (64, 300, 1400);
@@ -134,6 +136,8 @@ def check_kernels(torch, K, dev) -> dict:
         z_k = K.angular_fwd(lat, voc, vnorm)
         z_p = K.angular_partition_ref(lat, voc)
         dl_k = K.angular_bwd(lat, voc, vnorm, g)
+        # partials are added in a fixed order (no atomics): a second call is bit for bit equal
+        same = torch.equal(dl_k, K.angular_bwd(lat, voc, vnorm, g))
         dl_f = K.angular_partition_bwd_ref(lat, voc, vnorm, g)
         lat_p = lat.clone().requires_grad_()
         (K.angular_partition_ref(lat_p, voc) * g).sum().backward()
@@ -151,11 +155,13 @@ def check_kernels(torch, K, dev) -> dict:
         bwd_err = max(bwd_err, grad_abs)
         log(f"[k1] B={b} D={d} V={v} zero_row={zero_row}: fwd sum rel {sum_rel:.3e}, "
             f"elem rel {elem_rel:.3e}; grad max-rel vs autograd {grad_rel:.3e}, "
-            f"abs vs bwd_ref {grad_abs:.3e}")
+            f"abs vs bwd_ref {grad_abs:.3e}; repeat bit-equal {same}")
         if not (sum_rel < FWD_SUM_REL and elem_rel < FWD_RTOL):
             raise AssertionError(f"K1 forward disagrees at {(b, d, v, zero_row)}")
         if not (grad_rel < GRAD_MAX_REL and grad_abs < GRAD_ATOL):
             raise AssertionError(f"K1 backward disagrees at {(b, d, v, zero_row)}")
+        if not same:
+            raise AssertionError(f"K1 backward differs between two calls at {(b, d, v, zero_row)}")
 
     times = {}
     for b in (64, 512):
@@ -173,13 +179,15 @@ def check_kernels(torch, K, dev) -> dict:
         for kind, t in (("device", times[b]), ("one call", calls)):
             log(f"[k1] B={b} {kind} ms: fwd kernel {t['fwd']:.4f} plain {t['fwd_plain']:.4f}; "
                 f"bwd kernel {t['bwd']:.4f} plain {t['bwd_plain']:.4f}")
-    # the bounds at the train batch: each input read once, each output written once
-    b, d, v = 64, 300, 3016
-    fwd_bytes = 4 * (b * d + v * d + v + b)
-    bounds = {"fwd": bound_ms(2 * b * v * d, fwd_bytes),
-              "bwd": bound_ms(4 * b * v * d, fwd_bytes + 4 * b * d)}
-    log(f"[k1] bound at B=64: fwd {bounds['fwd'][0]:.5f} ms ({bounds['fwd'][1]}), "
-        f"bwd {bounds['bwd'][0]:.5f} ms ({bounds['bwd'][1]})")
+    # the bounds: each input read once, each output written once
+    bounds = {}
+    for b in (64, 512):
+        d, v = 300, 3016
+        fwd_bytes = 4 * (b * d + v * d + v + b)
+        bounds[b] = {"fwd": bound_ms(2 * b * v * d, fwd_bytes),
+                     "bwd": bound_ms(4 * b * v * d, fwd_bytes + 4 * b * d)}
+        log(f"[k1] bound at B={b}: fwd {bounds[b]['fwd'][0]:.5f} ms ({bounds[b]['fwd'][1]}), "
+            f"bwd {bounds[b]['bwd'][0]:.5f} ms ({bounds[b]['bwd'][1]})")
     return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": times, "bounds": bounds}
 
 
@@ -522,7 +530,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load()
-    log(f"[build] kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] kernel library built and loaded in {time.perf_counter() - t0:.2f} s; "
+        f"K1-bwd resident blocks per SM at D=300: {build.load().angular_bwd_blocks_per_sm(300)}")
 
     k1 = check_kernels(torch, K, dev)
     k2 = check_k2(torch, T, dev)
@@ -532,25 +541,21 @@ def main() -> int:
         fused = run_fused_path(torch, K, T, tmp)
     check_small_agreement(torch)
 
-    t = k1["times"]
+    t, kb = k1["times"], k1["bounds"]
     by_path = {"non_e2e": non_e2e["launches"], "e2e": e2e["launches"],
                "fused_sgd": fused["sgd"]["launches"], "fused_adam": fused["adam"]["launches"]}
     k1_path = {"fwd": e2e["launches"]["k1_fwd"], "bwd": e2e["launches"]["k1_bwd"]}
     record = {"kernels": [
-        {"name": "K1-fwd angular_partition", "route": "cuda",
-         "source": "mmtpu_torch/csrc/angular.cu", "replaces": "mmtpu/kernels/angular.py:171",
-         "launches": k1_path["fwd"], "max_abs_err": k1["fwd_err"],
-         "ms": t[64]["fwd"], "plain_ms": t[64]["fwd_plain"],
-         "bound_ms": k1["bounds"]["fwd"][0], "bound_by": k1["bounds"]["fwd"][1],
-         "library_ms": None,
-         "ms_b512": t[512]["fwd"], "plain_ms_b512": t[512]["fwd_plain"]},
-        {"name": "K1-bwd angular_partition", "route": "cuda",
-         "source": "mmtpu_torch/csrc/angular.cu", "replaces": "mmtpu/kernels/angular.py:199",
-         "launches": k1_path["bwd"], "max_abs_err": k1["bwd_err"],
-         "ms": t[64]["bwd"], "plain_ms": t[64]["bwd_plain"],
-         "bound_ms": k1["bounds"]["bwd"][0], "bound_by": k1["bounds"]["bwd"][1],
-         "library_ms": None,
-         "ms_b512": t[512]["bwd"], "plain_ms_b512": t[512]["bwd_plain"]},
+        {"name": f"K1-{kind} angular_partition", "route": "cuda", "source": source,
+         "replaces": f"mmtpu/kernels/angular.py:{line}",
+         "launches": k1_path[kind], "max_abs_err": k1[f"{kind}_err"],
+         "ms": t[64][kind], "plain_ms": t[64][f"{kind}_plain"],
+         "bound_ms": kb[64][kind][0], "bound_by": kb[64][kind][1], "library_ms": None,
+         "ms_b64": t[64][kind], "bound_ms_b64": kb[64][kind][0],
+         "ms_b512": t[512][kind], "plain_ms_b512": t[512][f"{kind}_plain"],
+         "bound_ms_b512": kb[512][kind][0], "bound_by_b512": kb[512][kind][1]}
+        for kind, line, source in (("fwd", 171, "mmtpu_torch/csrc/angular.cu"),
+                                   ("bwd", 199, "mmtpu_torch/csrc/angular_bwd.cu"))
     ] + [
         {"name": f"K2-{kind} fused_gemm_{kind}_update", "route": "cuda",
          "source": "mmtpu_torch/csrc/decoder_update.cu",

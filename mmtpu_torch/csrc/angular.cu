@@ -1,18 +1,11 @@
-// Angular word-likelihood partition (forward) and its latent gradient
-// (backward) for Hopper, sm_90a.
+// Angular word-likelihood partition (forward) for Hopper, sm_90a.  Its
+// latent gradient is mmtpu_torch/csrc/angular_bwd.cu.
 //
-// Replaces the Pallas TPU kernels of mmtpu/kernels/angular.py:
-//   forward  _fwd_kernel (pallas_call in _call_fwd)
-//   backward _bwd_kernel (pallas_call in _call_bwd)
+// Replaces the Pallas TPU kernel _fwd_kernel of mmtpu/kernels/angular.py
+// (pallas_call in _call_fwd):
 //
 //   Z[b]  = sum_v (1 - acos(clip(cos(l_b, v), +-(1 - 1e-7))) / pi)
 //   cos   = l_b . v / max(|l_b| |v|, 1e-8)
-//   dl[b] = sum_v g w v / max(|l||v|, 1e-8) - (sum_v g w cos) l / max(|l|^2, 1e-8)
-//   w     = (1/pi) / sqrt(max(1 - cos^2, 1e-12))
-//
-// The vocabulary is a constant here: no vocab gradient.  The backward
-// recomputes the cosines tile by tile, so nothing of size (B, V) is ever
-// written to device memory.
 //
 // What bounds it on an H100: at the training batch (B=64, V=3016, D=300) one
 // call is 64*3016*300*2 ~ 116 MFLOP against a 3.6 MB vocabulary read, so it is
@@ -42,14 +35,11 @@ constexpr int BM = 32;          // latent rows per block
 constexpr int BV = 64;          // vocabulary rows per sub-tile
 constexpr int THREADS = 256;    // 16 x 16 threads; each owns 2 rows x 4 columns
 constexpr int MAX_D = 512;      // depth bound of the shared-memory tiles
-constexpr int T1_PER_THREAD = MAX_D / 8;  // backward: 8 threads per row span D
-constexpr int REDUCE_THREADS = 128;
 
 constexpr float COS_EPS = 1e-8f;
 constexpr float ACOS_HI = (float)(1.0 - 1e-7);
 constexpr float ACOS_LO = (float)(-1.0 + 1e-7);
 constexpr float PI_F = 3.14159265358979323846f;
-constexpr float W_EPS = 1e-12f;
 
 __host__ __device__ inline int padded_depth(int d) { return d | 1; }  // odd stride: no bank conflicts
 
@@ -191,134 +181,8 @@ __global__ void angular_fwd_reduce(const float* __restrict__ partial, float* __r
     out[b] = s;
 }
 
-// grid (ceil(B/BM), n_chunks).  partial_dl: (n_chunks, B, D) holds
-// sum_v g w v / denom over the chunk; partial_s: (n_chunks, B) holds
-// sum_v g w cos.
-__global__ void __launch_bounds__(THREADS)
-angular_bwd_kernel(const float* __restrict__ lat, const float* __restrict__ vocab,
-                   const float* __restrict__ vnorm, const float* __restrict__ g,
-                   float* __restrict__ partial_dl, float* __restrict__ partial_s,
-                   int B, int V, int D, int tiles_per_chunk) {
-    extern __shared__ float smem[];
-    const int dp = padded_depth(D);
-    float* lat_s = smem;                 // BM x dp
-    float* voc_s = lat_s + BM * dp;      // BV x dp
-    float* coef_s = voc_s + BV * dp;     // BM x (BV + 1)
-    float* lnsq_s = coef_s + BM * (BV + 1);  // BM
-    float* vn_s = lnsq_s + BM;           // BV
-    float* g_s = vn_s + BV;              // BM
-
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    const int rr = threadIdx.x / 8, dd = threadIdx.x % 8;  // term-1 ownership
-    const int b0 = blockIdx.x * BM;
-    const int n_sub = (V + BV - 1) / BV;
-    const int st0 = blockIdx.y * tiles_per_chunk;
-    const int st1 = min(st0 + tiles_per_chunk, n_sub);
-
-    load_rows(lat_s, lat, b0, BM, B, D, dp);
-    if (threadIdx.x < BM) {
-        int b = b0 + threadIdx.x;
-        g_s[threadIdx.x] = b < B ? g[b] : 0.f;
-    }
-    __syncthreads();
-    row_norms(lat_s, D, dp, lnsq_s);
-
-    float t1[T1_PER_THREAD];
-#pragma unroll
-    for (int m = 0; m < T1_PER_THREAD; ++m) t1[m] = 0.f;
-    float ss[2] = {0.f, 0.f};
-
-    for (int st = st0; st < st1; ++st) {
-        const int v0 = st * BV;
-        __syncthreads();
-        load_rows(voc_s, vocab, v0, BV, V, D, dp);
-        if (threadIdx.x < BV) {
-            int v = v0 + threadIdx.x;
-            vn_s[threadIdx.x] = v < V ? vnorm[v] : 0.f;
-        }
-        __syncthreads();
-        float acc[2][4];
-        dot_tile(lat_s, voc_s, D, dp, ty, tx, acc);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            int r = ty + 16 * i;
-            float ln = sqrtf(lnsq_s[r]);
-            float gr = g_s[r];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                int c = tx + 16 * j;
-                float coef = 0.f;
-                if (v0 + c < V) {
-                    float denom = fmaxf(ln * vn_s[c], COS_EPS);
-                    float cs = clip_cos(acc[i][j] / denom);
-                    float w = (1.f / PI_F) / sqrtf(fmaxf(1.f - cs * cs, W_EPS));
-                    float wg = w * gr;
-                    coef = wg / denom;
-                    ss[i] += wg * cs;
-                }
-                coef_s[r * (BV + 1) + c] = coef;
-            }
-        }
-        __syncthreads();
-        // term 1: t1[rr, :] += coef[rr, :] @ voc_s
-        const float* crow = coef_s + rr * (BV + 1);
-        for (int j = 0; j < BV; ++j) {
-            float cj = crow[j];
-            const float* vrow = voc_s + j * dp + dd;
-#pragma unroll
-            for (int m = 0; m < T1_PER_THREAD; ++m)
-                if (dd + 8 * m < D) t1[m] = fmaf(cj, vrow[8 * m], t1[m]);
-        }
-    }
-
-    const int b = b0 + rr;
-    if (b < B) {
-        float* out = partial_dl + ((size_t)blockIdx.y * B + b) * D;
-#pragma unroll
-        for (int m = 0; m < T1_PER_THREAD; ++m)
-            if (dd + 8 * m < D) out[dd + 8 * m] = t1[m];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        float s = half_warp_sum(ss[i]);
-        int bi = b0 + ty + 16 * i;
-        if (tx == 0 && bi < B) partial_s[(size_t)blockIdx.y * B + bi] = s;
-    }
-}
-
-// One block per latent row: dl = sum_c partial_dl[c] - s * l / max(|l|^2, 1e-8).
-__global__ void __launch_bounds__(REDUCE_THREADS)
-angular_bwd_reduce(const float* __restrict__ lat, const float* __restrict__ partial_dl,
-                   const float* __restrict__ partial_s, float* __restrict__ dlat,
-                   int B, int D, int n_chunks) {
-    __shared__ float red[REDUCE_THREADS];
-    const int b = blockIdx.x;
-    const float* l = lat + (size_t)b * D;
-    float sq = 0.f;
-    for (int d = threadIdx.x; d < D; d += REDUCE_THREADS) sq = fmaf(l[d], l[d], sq);
-    red[threadIdx.x] = sq;
-    __syncthreads();
-    for (int off = REDUCE_THREADS / 2; off > 0; off >>= 1) {
-        if (threadIdx.x < off) red[threadIdx.x] += red[threadIdx.x + off];
-        __syncthreads();
-    }
-    const float lnorm_sq = red[0];
-    float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += partial_s[(size_t)c * B + b];
-    const float denom = fmaxf(lnorm_sq, COS_EPS);
-    for (int d = threadIdx.x; d < D; d += REDUCE_THREADS) {
-        float acc = 0.f;
-        for (int c = 0; c < n_chunks; ++c) acc += partial_dl[((size_t)c * B + b) * D + d];
-        dlat[(size_t)b * D + d] = acc - s * l[d] / denom;
-    }
-}
-
 size_t fwd_smem_bytes(int d) {
     return sizeof(float) * ((size_t)(BM + BV) * padded_depth(d) + BM + BV);
-}
-
-size_t bwd_smem_bytes(int d) {
-    return sizeof(float) * ((size_t)(BM + BV) * padded_depth(d) + BM * (BV + 1) + 2 * BM + BV);
 }
 
 }  // namespace
@@ -348,30 +212,6 @@ int angular_fwd(const void* lat, const void* vocab, const void* vnorm, void* par
     if (err != cudaSuccess) return (int)err;
     angular_fwd_reduce<<<(B + 255) / 256, 256, 0, s>>>((const float*)partial, (float*)out,
                                                        B, n_chunks);
-    return (int)cudaGetLastError();
-}
-
-// partial_dl: (n_chunks, B, D) scratch; partial_s: (n_chunks, B) scratch;
-// dlat: (B, D)
-int angular_bwd(const void* lat, const void* vocab, const void* vnorm, const void* g,
-                void* partial_dl, void* partial_s, void* dlat, int B, int V, int D,
-                int n_chunks, int tiles_per_chunk, void* stream) {
-    if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    size_t smem = bwd_smem_bytes(D);
-    cudaError_t err = cudaFuncSetAttribute(angular_bwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((B + BM - 1) / BM, n_chunks);
-    angular_bwd_kernel<<<grid, THREADS, smem, s>>>(
-        (const float*)lat, (const float*)vocab, (const float*)vnorm, (const float*)g,
-        (float*)partial_dl, (float*)partial_s, B, V, D, tiles_per_chunk);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    angular_bwd_reduce<<<B, REDUCE_THREADS, 0, s>>>((const float*)lat, (const float*)partial_dl,
-                                                   (const float*)partial_s, (float*)dlat,
-                                                   B, D, n_chunks);
     return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 
 Replaces the Pallas TPU kernels of :mod:`mmtpu.kernels.angular`
 (``_fwd_kernel`` / ``_bwd_kernel`` and their ``custom_vjp``) with CUDA C++
-kernels for Hopper (``mmtpu_torch/csrc/angular.cu``, built by
-:mod:`mmtpu_torch.kernels.build`).  The source's header says how the kernels
+kernels for Hopper (``mmtpu_torch/csrc/angular.cu`` for the forward,
+``mmtpu_torch/csrc/angular_bwd.cu`` for the backward, built by
+:mod:`mmtpu_torch.kernels.build`).  The sources' headers say how the kernels
 are laid out and what bounds them on an H100.
 
 - :func:`angular_fwd` / :func:`angular_bwd` are the wrappers.  For a CUDA
@@ -103,6 +104,28 @@ def _grid(b: int, v: int, device: torch.device, lib) -> tuple:
     return -(-n_sub // tpc), tpc
 
 
+# resident backward blocks per SM that bwd_grid fills (angular_bwd.cu at D <= 384)
+BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int) -> tuple:
+    """``(n_chunks, tiles_per_chunk)`` of the backward's grid (row tiles x
+    chunks): the vocabulary's sub-tiles are cut into chunks of whole
+    sub-tiles, one block per (row tile, chunk).  Enough chunks that the blocks
+    fill the card's ``BWD_BLOCKS_PER_SM`` slots per SM in one wave, and no
+    more: each block then loads its latent tile and writes its partials once
+    for as many sub-tiles as it can.  A chunk takes at least two sub-tiles
+    wherever the blocks would still cover every SM.  A function of its
+    arguments only, so runs reproduce."""
+    n_rt = -(-b // row_tile)
+    n_sub = -(-v // vocab_tile)
+    tpc = -(-(n_rt * n_sub) // (BWD_BLOCKS_PER_SM * sm_count))
+    if tpc == 1 and n_rt * -(-n_sub // 2) >= sm_count:
+        tpc = 2
+    tpc = min(tpc, n_sub)
+    return -(-n_sub // tpc), tpc
+
+
 def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor) -> torch.Tensor:
     """``Z`` as ``(B, 1)``; ``vnorm`` is the ``(V,)`` vocab row norms."""
     _check_shapes(latents, vocab, vnorm)
@@ -143,21 +166,23 @@ def angular_bwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor,
 
     _check_cuda(latents, vocab, vnorm, g)
     lib = load()
-    if latents.shape[1] > lib.angular_max_depth():
-        raise ValueError(f"angular kernel takes depth <= {lib.angular_max_depth()}")
+    if latents.shape[1] > lib.angular_bwd_max_depth():
+        raise ValueError(f"angular kernel takes depth <= {lib.angular_bwd_max_depth()}")
     b, d = latents.shape
     v = vocab.shape[0]
     dlat = torch.empty((b, d), dtype=torch.float32, device=latents.device)
     if b == 0:
         return dlat
-    chunks, tpc = _grid(b, v, latents.device, lib)
-    partial_dl = torch.empty((chunks, b, d), dtype=torch.float32, device=latents.device)
-    partial_s = torch.empty((chunks, b), dtype=torch.float32, device=latents.device)
+    chunks, tpc = bwd_grid(b, v, lib.angular_bwd_row_tile(), lib.angular_bwd_vocab_tile(),
+                           _sm_count(latents.device.index))
+    # each vocabulary chunk's part of dl, rows padded to a multiple of 4 floats
+    partial = torch.empty((chunks, b, -(-d // 4) * 4), dtype=torch.float32,
+                          device=latents.device)
     with torch.cuda.device(latents.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.angular_bwd(latents.data_ptr(), vocab.data_ptr(), vnorm.data_ptr(),
-                              g.data_ptr(), partial_dl.data_ptr(), partial_s.data_ptr(),
-                              dlat.data_ptr(), b, v, d, chunks, tpc, stream)
+                              g.data_ptr(), partial.data_ptr(), dlat.data_ptr(), b, v, d,
+                              chunks, tpc, stream)
     check_launch(lib, "angular_bwd", err)
     LAUNCHES["bwd"] += 1
     return dlat

@@ -94,9 +94,12 @@ def load() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.angular_fwd.argtypes = [vp] * 5 + [i] * 5 + [vp]
         lib.angular_fwd.restype = i
-        lib.angular_bwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
+        lib.angular_bwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
         lib.angular_bwd.restype = i
-        for fn in ("angular_max_depth", "angular_row_tile", "angular_vocab_tile"):
+        lib.angular_bwd_blocks_per_sm.argtypes = [i]
+        lib.angular_bwd_blocks_per_sm.restype = i
+        for fn in ("angular_max_depth", "angular_row_tile", "angular_vocab_tile",
+                   "angular_bwd_max_depth", "angular_bwd_row_tile", "angular_bwd_vocab_tile"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
         lib.cuda_error_string.argtypes = [i]

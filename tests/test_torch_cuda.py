@@ -28,10 +28,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,v", [(64, 300, 3016), (37, 300, 3001), (5, 301, 70)])
+@pytest.mark.parametrize("b,d,v", [(64, 300, 3016), (37, 300, 3001), (5, 301, 70),
+                                   (64, 301, 3016), (33, 512, 100), (1, 300, 20),
+                                   (512, 300, 3016)])
 def test_kernels_match_plain(cuda_device, b, d, v):
     """Both K1 kernels against their plain versions: the train batch's shape,
-    a ragged one, and a depth that takes the scalar load path."""
+    a ragged one, depths that take the scalar load path (one at full tile
+    depth), the largest depth, a vocabulary below one tile with one row, and
+    the inference batch."""
     gen = torch.Generator().manual_seed(0)
     lat = torch.randn(b, d, generator=gen).to(cuda_device)
     vocab = torch.randn(v, d, generator=gen).to(cuda_device)

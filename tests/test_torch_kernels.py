@@ -86,6 +86,23 @@ def test_wrappers_reject_bad_shapes(rng):
         K.angular_fwd(lat.to("meta"), vocab.to("meta"), vn.to("meta"))
 
 
+@pytest.mark.parametrize("b,v", [(64, 3016), (512, 3016), (2048, 3016), (37, 3001), (1, 20)])
+def test_bwd_grid_covers_every_sub_tile_once(b, v):
+    """The backward's grid at chip_smoke.py's shapes on a 132-SM card: the
+    chunks cut the vocabulary's sub-tiles into whole, non-empty ranges that
+    cover each sub-tile exactly once, and the grid depends on its arguments
+    only (no device is asked)."""
+    row_tile, vocab_tile = 32, 32
+    chunks, tpc = K.bwd_grid(b, v, row_tile, vocab_tile, 132)
+    n_sub = -(-v // vocab_tile)
+    covered = [st for c in range(chunks) for st in range(c * tpc, min((c + 1) * tpc, n_sub))]
+    assert sorted(covered) == list(range(n_sub))
+    assert all(c * tpc < n_sub for c in range(chunks))
+    assert K.bwd_grid(b, v, row_tile, vocab_tile, 132) == (chunks, tpc)
+    if -(-b // row_tile) * n_sub >= 132:  # enough work: every SM gets a block
+        assert -(-b // row_tile) * chunks >= 132
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     from mmtpu_torch.kernels import build
 
