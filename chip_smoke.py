@@ -10,8 +10,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    source, side by side; timed);
 2. kernel K1 (angular partition, forward and backward) against its plain
    PyTorch versions at the main path's shapes, plus a ragged shape and a
-   zero latent row, with the backward called twice and required bit for bit
-   equal; kernel and plain times at 64 and 512 rows (device time per call
+   zero latent row, with the forward and the backward each called twice and
+   required bit for bit equal; kernel and plain times at 64 and 512 rows (device time per call
    from queued bursts, and the median of single calls) and the bounds at
    both;
 3. kernel K2 (fused decoder update, Adam and SGD) against its plain versions
@@ -137,6 +137,7 @@ def check_kernels(torch, K, dev) -> dict:
         z_p = K.angular_partition_ref(lat, voc)
         dl_k = K.angular_bwd(lat, voc, vnorm, g)
         # partials are added in a fixed order (no atomics): a second call is bit for bit equal
+        same_fwd = torch.equal(z_k, K.angular_fwd(lat, voc, vnorm))
         same = torch.equal(dl_k, K.angular_bwd(lat, voc, vnorm, g))
         dl_f = K.angular_partition_bwd_ref(lat, voc, vnorm, g)
         lat_p = lat.clone().requires_grad_()
@@ -155,11 +156,13 @@ def check_kernels(torch, K, dev) -> dict:
         bwd_err = max(bwd_err, grad_abs)
         log(f"[k1] B={b} D={d} V={v} zero_row={zero_row}: fwd sum rel {sum_rel:.3e}, "
             f"elem rel {elem_rel:.3e}; grad max-rel vs autograd {grad_rel:.3e}, "
-            f"abs vs bwd_ref {grad_abs:.3e}; repeat bit-equal {same}")
+            f"abs vs bwd_ref {grad_abs:.3e}; repeat bit-equal fwd {same_fwd} bwd {same}")
         if not (sum_rel < FWD_SUM_REL and elem_rel < FWD_RTOL):
             raise AssertionError(f"K1 forward disagrees at {(b, d, v, zero_row)}")
         if not (grad_rel < GRAD_MAX_REL and grad_abs < GRAD_ATOL):
             raise AssertionError(f"K1 backward disagrees at {(b, d, v, zero_row)}")
+        if not same_fwd:
+            raise AssertionError(f"K1 forward differs between two calls at {(b, d, v, zero_row)}")
         if not same:
             raise AssertionError(f"K1 backward differs between two calls at {(b, d, v, zero_row)}")
 
@@ -529,9 +532,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    build.load()
+    lib = build.load()
+    occupancy = {f"{kind} D={d}": getattr(lib, f"angular_{kind}_blocks_per_sm")(d)
+                 for kind in ("fwd", "bwd") for d in (300, 512)}
     log(f"[build] kernel library built and loaded in {time.perf_counter() - t0:.2f} s; "
-        f"K1-bwd resident blocks per SM at D=300: {build.load().angular_bwd_blocks_per_sm(300)}")
+        f"K1 resident blocks per SM: {occupancy}")
 
     k1 = check_kernels(torch, K, dev)
     k2 = check_k2(torch, T, dev)

@@ -1,5 +1,6 @@
 // Angular word-likelihood partition (forward) for Hopper, sm_90a.  Its
-// latent gradient is mmtpu_torch/csrc/angular_bwd.cu.
+// latent gradient is angular_bwd.cu; both take their tile shape, row layout
+// and tile load from angular_tile.cuh.
 //
 // Replaces the Pallas TPU kernel _fwd_kernel of mmtpu/kernels/angular.py
 // (pallas_call in _call_fwd):
@@ -7,211 +8,243 @@
 //   Z[b]  = sum_v (1 - acos(clip(cos(l_b, v), +-(1 - 1e-7))) / pi)
 //   cos   = l_b . v / max(|l_b| |v|, 1e-8)
 //
-// What bounds it on an H100: at the training batch (B=64, V=3016, D=300) one
-// call is 64*3016*300*2 ~ 116 MFLOP against a 3.6 MB vocabulary read, so it is
-// bound by launch latency and by streaming the vocabulary, not by compute.
-// The TPU kernel carried each row's sum across *sequential* vocab grid steps;
-// here blocks run in parallel and in no order, so the vocabulary is split
-// across blocks as well as the rows (enough blocks for 132 SMs even at 64
-// rows), each block writes a partial per (vocab chunk, row), and a second
-// small pass adds the partials in a fixed order.  No float atomics, so runs
-// reproduce bit for bit.
+// What bounds it on an H100: one product of 2 B V D operations against one
+// read of the inputs.  At (B, V, D) = (64, 3016, 300) that is 116 MFLOP
+// against 3.7 MB, so the float32 FMA rate sets the bound (1.7 us at 67
+// TFLOP/s; 13.8 us at 512 rows), not the memory.  A kernel that reads its
+// operands from shared memory as scalars misses it inside the SM: at 0.75
+// loads per FMA the load/store unit sets the pace.
 //
-// Design (simple first; wgmma/TMA come later): a block holds its BM latent
-// rows and one BV-row vocabulary sub-tile at full depth D in shared memory and
-// forms the BM x BV dot tile with f32 FMAs.  Rows past B and vocabulary rows
-// past V load as zeros and are masked out of every sum.
+// What the design does about it:
+// - Register tiles.  Each lane holds a 4 latent row x 4 vocab row tile and
+//   reads both operands from shared memory as float4 along D: 8 loads for 64
+//   FMAs.  The four lanes of a tile take every fourth float4 of D and add
+//   their sums with two shuffle steps that each keep half the rows, so each
+//   lane ends with one row's four dot products.  The cosine, clip, acosf and
+//   vocabulary mask follow in registers, into the lane's running row sum.
+// - Two blocks per SM: BM = BV = 32 rows at full depth take about 77 KB of
+//   shared memory at D = 300, so one block's tile loads overlap the other's
+//   products.  At D = 512 (130 KB) the SM takes one block; the grid asks the
+//   runtime how many fit (angular_fwd_blocks_per_sm).
+// - |l|^2 with 8 lanes per row and shuffles.
+// - The TPU carried each row's sum across sequential vocab grid steps; here
+//   blocks run in any order, so the vocabulary is split into chunks of whole
+//   sub-tiles across blocks (grid: mmtpu_torch/kernels/angular.py::fwd_grid)
+//   and each block writes one partial per (chunk, row).  The partials are
+//   added in a fixed order: by the last block of each row tile to finish
+//   (found through a __threadfence and a ticket per row tile, which that
+//   block resets), or by a second pass of one warp per row.  No float
+//   atomics, so runs reproduce bit for bit.
 //
 // C interface, loaded with ctypes: every entry point takes device pointers
 // and the CUDA stream, launches asynchronously and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "angular_tile.cuh"
 
 namespace {
 
-constexpr int BM = 32;          // latent rows per block
-constexpr int BV = 64;          // vocabulary rows per sub-tile
-constexpr int THREADS = 256;    // 16 x 16 threads; each owns 2 rows x 4 columns
-constexpr int MAX_D = 512;      // depth bound of the shared-memory tiles
+constexpr int REDUCE_THREADS = 256;
 
-constexpr float COS_EPS = 1e-8f;
-constexpr float ACOS_HI = (float)(1.0 - 1e-7);
-constexpr float ACOS_LO = (float)(-1.0 + 1e-7);
-constexpr float PI_F = 3.14159265358979323846f;
-
-__host__ __device__ inline int padded_depth(int d) { return d | 1; }  // odd stride: no bank conflicts
-
-// Load rows [row0, row0 + nrows) of a (total, D) row-major matrix into shared
-// memory with row stride dp; rows past `total` become zeros.  With one block
-// per SM few warps hide memory latency, so each thread keeps several 16-byte
-// loads in flight; rows that are not 16-byte aligned take the scalar path.
-__device__ inline void load_rows(float* dst, const float* __restrict__ src,
-                                 int row0, int nrows, int total, int d, int dp) {
-    if ((d & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        const int d4 = d >> 2;
-        const float4* __restrict__ src4 = reinterpret_cast<const float4*>(src);
-#pragma unroll 4
-        for (int idx = threadIdx.x; idx < nrows * d4; idx += THREADS) {
-            int r = idx / d4;
-            int k = idx - r * d4;
-            int row = row0 + r;
-            float4 v = row < total ? src4[(size_t)row * d4 + k]
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-            float* o = dst + r * dp + 4 * k;
-            o[0] = v.x;
-            o[1] = v.y;
-            o[2] = v.z;
-            o[3] = v.w;
-        }
-        return;
-    }
-#pragma unroll 4
-    for (int idx = threadIdx.x; idx < nrows * d; idx += THREADS) {
-        int r = idx / d;
-        int k = idx - r * d;
-        int row = row0 + r;
-        dst[r * dp + k] = row < total ? src[(size_t)row * d + k] : 0.f;
-    }
-}
-
-// acc[i][j] = lat_s[ty + 16 i] . voc_s[tx + 16 j]
-__device__ inline void dot_tile(const float* lat_s, const float* voc_s, int d, int dp,
-                                int ty, int tx, float acc[2][4]) {
+// The four lanes ks = 0..3 of a tile each hold sums over their quarter of D
+// for 4 rows x 4 columns; add them so that lane ks ends with row ks's four
+// sums.  Each step keeps half the rows, so no array is indexed at run time.
+__device__ inline void reduce_scatter(const float (&acc)[4][4], int ks, float (&dots)[4]) {
+    const bool hi1 = ks & 2, hi0 = ks & 1;
+    float h[2][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    const float* a0 = lat_s + ty * dp;
-    const float* a1 = lat_s + (ty + 16) * dp;
-    const float* b0 = voc_s + tx * dp;
-    for (int k = 0; k < d; ++k) {
-        float x0 = a0[k], x1 = a1[k];
-#pragma unroll
         for (int j = 0; j < 4; ++j) {
-            float y = b0[16 * j * dp + k];
-            acc[0][j] = fmaf(x0, y, acc[0][j]);
-            acc[1][j] = fmaf(x1, y, acc[1][j]);
+            float send = hi1 ? acc[i][j] : acc[i + 2][j];
+            float keep = hi1 ? acc[i + 2][j] : acc[i][j];
+            h[i][j] = keep + __shfl_xor_sync(FULL, send, 2);
         }
-    }
-}
-
-// Sum over the 16 tx lanes that share a row (lanes of one half-warp).
-__device__ inline float half_warp_sum(float x) {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-}
-
-__device__ inline void row_norms(const float* lat_s, int d, int dp, float* lnorm_sq_s) {
-    int r = threadIdx.x;
-    if (r < BM) {
-        float s = 0.f;
-        for (int k = 0; k < d; ++k) s = fmaf(lat_s[r * dp + k], lat_s[r * dp + k], s);
-        lnorm_sq_s[r] = s;
+    for (int j = 0; j < 4; ++j) {
+        float send = hi0 ? h[0][j] : h[1][j];
+        float keep = hi0 ? h[1][j] : h[0][j];
+        dots[j] = keep + __shfl_xor_sync(FULL, send, 1);
     }
 }
 
-__device__ inline float clip_cos(float c) { return fminf(fmaxf(c, ACOS_LO), ACOS_HI); }
-
-// grid (ceil(B/BM), n_chunks); chunk c covers vocab sub-tiles
+// grid (ceil(B / BM), n_chunks); chunk c covers vocab sub-tiles
 // [c * tiles_per_chunk, (c + 1) * tiles_per_chunk).  partial: (n_chunks, B).
-__global__ void __launch_bounds__(THREADS)
+// With tickets (one per row tile, all 0), the last block of a row tile adds
+// its partials into out (B,) and sets its ticket back to 0.
+__global__ void __launch_bounds__(THREADS, 2)
 angular_fwd_kernel(const float* __restrict__ lat, const float* __restrict__ vocab,
                    const float* __restrict__ vnorm, float* __restrict__ partial,
-                   int B, int V, int D, int tiles_per_chunk) {
-    extern __shared__ float smem[];
-    const int dp = padded_depth(D);
-    float* lat_s = smem;                 // BM x dp
-    float* voc_s = lat_s + BM * dp;      // BV x dp
-    float* lnsq_s = voc_s + BV * dp;     // BM
-    float* vn_s = lnsq_s + BM;           // BV
+                   unsigned* __restrict__ tickets, float* __restrict__ out, int B, int V,
+                   int D, int tiles_per_chunk) {
+    extern __shared__ float4 smem[];
+    __shared__ bool last;
+    const int d4 = depth4(D), dp4 = stride4(D);
+    float4* lat_s = smem;                                         // BM x dp4
+    float4* voc_s = lat_s + BM * dp4;                             // BV x dp4
+    float* lnsq_s = reinterpret_cast<float*>(voc_s + BV * dp4);   // BM
+    float* vn_s = lnsq_s + BM;                                    // BV
+    float* rs_s = vn_s + BV;                                      // [2][BM]
 
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // tile of a lane: latent rows 4 rg + i, vocab rows 4 cg + j; the four
+    // lanes ks = 0..3 of a tile split D, and lane ks ends with row 4 rg + ks
+    const int ks = lane & 3;
+    const int cg = 4 * (warp & 1) + ((lane >> 2) & 3);
+    const int rg = 2 * (warp >> 1) + (lane >> 4);
+    const int r = 4 * rg + ks;
     const int b0 = blockIdx.x * BM;
     const int n_sub = (V + BV - 1) / BV;
     const int st0 = blockIdx.y * tiles_per_chunk;
     const int st1 = min(st0 + tiles_per_chunk, n_sub);
 
-    load_rows(lat_s, lat, b0, BM, B, D, dp);
+    load_tile<BM>(lat_s, lat, b0, B, D, d4, dp4);
     __syncthreads();
-    row_norms(lat_s, D, dp, lnsq_s);
+    {  // |l|^2, 8 lanes per row
+        const int row = tid >> 3, p = tid & 7;
+        float s = 0.f;
+        for (int k = p; k < d4; k += 8) {
+            float4 x = lat_s[row * dp4 + k];
+            s = dot4(x, x, s);
+        }
+        s += __shfl_xor_sync(FULL, s, 1);
+        s += __shfl_xor_sync(FULL, s, 2);
+        s += __shfl_xor_sync(FULL, s, 4);
+        if (p == 0) lnsq_s[row] = s;
+    }
 
-    float rs[2] = {0.f, 0.f};
+    float rs = 0.f;  // sum over this lane's vocab columns for row r
     for (int st = st0; st < st1; ++st) {
         const int v0 = st * BV;
-        __syncthreads();  // previous sub-tile fully consumed
-        load_rows(voc_s, vocab, v0, BV, V, D, dp);
-        if (threadIdx.x < BV) {
-            int v = v0 + threadIdx.x;
-            vn_s[threadIdx.x] = v < V ? vnorm[v] : 0.f;
-        }
+        __syncthreads();  // previous sub-tile consumed
+        load_tile<BV>(voc_s, vocab, v0, V, D, d4, dp4);
+        if (tid < BV) vn_s[tid] = v0 + tid < V ? vnorm[v0 + tid] : 0.f;
         __syncthreads();
-        float acc[2][4];
-        dot_tile(lat_s, voc_s, D, dp, ty, tx, acc);
+
+        float acc[4][4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            float ln = sqrtf(lnsq_s[ty + 16 * i]);
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                int c = tx + 16 * j;
-                if (v0 + c < V) {
-                    float cs = clip_cos(acc[i][j] / fmaxf(ln * vn_s[c], COS_EPS));
-                    rs[i] += 1.f - acosf(cs) / PI_F;
-                }
+            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int k = ks; k < d4; k += 4) {
+            float4 a[4], b[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = lat_s[(4 * rg + i) * dp4 + k];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[j] = voc_s[(4 * cg + j) * dp4 + k];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = dot4(a[i], b[j], acc[i][j]);
+        }
+        float dots[4];
+        reduce_scatter(acc, ks, dots);
+
+        const float ln = sqrtf(lnsq_s[r]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = 4 * cg + j;
+            if (v0 + c < V) {
+                float cs = dots[j] / fmaxf(ln * vn_s[c], COS_EPS);
+                cs = fminf(fmaxf(cs, ACOS_LO), ACOS_HI);
+                rs += 1.f - acosf(cs) / PI_F;
             }
         }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        float s = half_warp_sum(rs[i]);
-        int b = b0 + ty + 16 * i;
-        if (tx == 0 && b < B) partial[(size_t)blockIdx.y * B + b] = s;
+
+    // over the four tiles of the warp's half (lane bits 2-3), then over the
+    // two warps that share a row group, in that order
+    rs += __shfl_xor_sync(FULL, rs, 4);
+    rs += __shfl_xor_sync(FULL, rs, 8);
+    if (((lane >> 2) & 3) == 0) rs_s[(warp & 1) * BM + r] = rs;
+    __syncthreads();
+    if (tid < BM && b0 + tid < B) {
+        partial[(size_t)blockIdx.y * B + b0 + tid] = rs_s[tid] + rs_s[BM + tid];
+        __threadfence();  // the partial is visible to every block before the ticket
     }
+    if (tickets == nullptr) return;
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(&tickets[blockIdx.x], 1u) == gridDim.y - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // the row tile's partials, 8 lanes per row: lane p adds chunks p, p + 8,
+    // ... in order, then the lanes add by a fixed xor tree
+    const int row = tid >> 3, p = tid & 7, b = b0 + row;
+    float s = 0.f;
+    if (b < B)
+        for (int c = p; c < (int)gridDim.y; c += 8) s += __ldcg(&partial[(size_t)c * B + b]);
+    s += __shfl_xor_sync(FULL, s, 1);
+    s += __shfl_xor_sync(FULL, s, 2);
+    s += __shfl_xor_sync(FULL, s, 4);
+    if (p == 0 && b < B) out[b] = s;
+    if (tid == 0) tickets[blockIdx.x] = 0u;
 }
 
-// out[b] = sum_c partial[c, b], in chunk order.
-__global__ void angular_fwd_reduce(const float* __restrict__ partial, float* __restrict__ out,
-                                   int B, int n_chunks) {
-    int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
+// One warp per row: lane l adds chunks l, l + 32, ... in order, then the
+// lanes add by a fixed xor tree.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+angular_fwd_reduce(const float* __restrict__ partial, float* __restrict__ out, int B,
+                   int n_chunks) {
+    const int b = blockIdx.x * (REDUCE_THREADS / 32) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (b >= B) return;  // the whole warp
     float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += partial[(size_t)c * B + b];
-    out[b] = s;
+    for (int c = lane; c < n_chunks; c += 32) s += partial[(size_t)c * B + b];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+    if (lane == 0) out[b] = s;
 }
 
 size_t fwd_smem_bytes(int d) {
-    return sizeof(float) * ((size_t)(BM + BV) * padded_depth(d) + BM + BV);
+    return sizeof(float4) * (size_t)(BM + BV) * stride4(d) + sizeof(float) * (BM + BV + 2 * BM);
+}
+
+cudaError_t configure(int D) {
+    cudaError_t err = cudaFuncSetAttribute(angular_fwd_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)fwd_smem_bytes(D));
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(angular_fwd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
 
 extern "C" {
 
+// K1's tile shape and depth bound, forward and backward alike
 int angular_max_depth() { return MAX_D; }
 int angular_row_tile() { return BM; }
 int angular_vocab_tile() { return BV; }
 
-// partial: (n_chunks, B) scratch; out: (B,)
+// Resident blocks per SM of the main kernel at depth D (-1 on error).
+int angular_fwd_blocks_per_sm(int D) {
+    if (D < 1 || D > MAX_D || configure(D) != cudaSuccess) return -1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, angular_fwd_kernel, THREADS,
+                                                      fwd_smem_bytes(D)) != cudaSuccess)
+        return -1;
+    return n;
+}
+
+// partial: (n_chunks, B) scratch; out: (B,).  tickets: one per row tile, all
+// 0 (left 0), or null for the second pass.
 int angular_fwd(const void* lat, const void* vocab, const void* vnorm, void* partial,
-                void* out, int B, int V, int D, int n_chunks, int tiles_per_chunk,
-                void* stream) {
+                void* tickets, void* out, int B, int V, int D, int n_chunks,
+                int tiles_per_chunk, void* stream) {
     if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    size_t smem = fwd_smem_bytes(D);
-    cudaError_t err = cudaFuncSetAttribute(angular_fwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = configure(D);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((B + BM - 1) / BM, n_chunks);
-    angular_fwd_kernel<<<grid, THREADS, smem, s>>>(
+    angular_fwd_kernel<<<grid, THREADS, fwd_smem_bytes(D), s>>>(
         (const float*)lat, (const float*)vocab, (const float*)vnorm, (float*)partial,
-        B, V, D, tiles_per_chunk);
+        (unsigned*)tickets, (float*)out, B, V, D, tiles_per_chunk);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    angular_fwd_reduce<<<(B + 255) / 256, 256, 0, s>>>((const float*)partial, (float*)out,
-                                                       B, n_chunks);
+    if (err != cudaSuccess || tickets != nullptr) return (int)err;
+    const int per_block = REDUCE_THREADS / 32;
+    angular_fwd_reduce<<<(B + per_block - 1) / per_block, REDUCE_THREADS, 0, s>>>(
+        (const float*)partial, (float*)out, B, n_chunks);
     return (int)cudaGetLastError();
 }
 

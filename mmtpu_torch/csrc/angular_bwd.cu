@@ -1,5 +1,6 @@
 // Latent gradient (backward) of the angular word-likelihood partition for
-// Hopper, sm_90a.
+// Hopper, sm_90a.  Its tile shape, row layout and tile load are shared with
+// the forward (angular.cu) through angular_tile.cuh.
 //
 // Replaces the Pallas TPU kernel _bwd_kernel of mmtpu/kernels/angular.py
 // (pallas_call in _call_bwd):
@@ -46,74 +47,12 @@
 // C interface, loaded with ctypes: the entry point takes device pointers and
 // the CUDA stream, launches asynchronously and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "angular_tile.cuh"
 
 namespace {
 
-constexpr int BM = 32;        // latent rows per block
-constexpr int BV = 32;        // vocabulary rows per sub-tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_D = 512;
 constexpr int REDUCE_THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
-
-constexpr float COS_EPS = 1e-8f;
-constexpr float ACOS_HI = (float)(1.0 - 1e-7);
-constexpr float ACOS_LO = (float)(-1.0 + 1e-7);
-constexpr float PI_F = 3.14159265358979323846f;
 constexpr float W_EPS = 1e-12f;
-
-// float4 groups of a row, and the shared row stride in float4s (odd)
-__host__ __device__ inline int depth4(int d) { return (d + 3) >> 2; }
-__host__ __device__ inline int stride4(int d) { return depth4(d) | 1; }
-
-// Rows [row0, row0 + ROWS) of a (total, d) row-major matrix into shared memory
-// with float4 row stride dp4; rows past `total` and columns past d (up to the
-// float4 boundary) become zeros.  Four 16-byte loads in flight per thread.
-template <int ROWS>
-__device__ inline void load_tile(float4* dst, const float* __restrict__ src, int row0,
-                                 int total, int d, int d4, int dp4) {
-    if ((d & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        const float4* __restrict__ src4 = reinterpret_cast<const float4*>(src);
-        const int n = ROWS * d4;
-        for (int base = threadIdx.x; base < n; base += 4 * THREADS) {
-            float4 v[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                int idx = base + u * THREADS;
-                int r = idx / d4;
-                v[u] = (idx < n && row0 + r < total)
-                           ? src4[(size_t)(row0 + r) * d4 + (idx - r * d4)]
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-            }
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                int idx = base + u * THREADS;
-                int r = idx / d4;
-                if (idx < n) dst[r * dp4 + (idx - r * d4)] = v[u];
-            }
-        }
-        return;
-    }
-    float* dsts = reinterpret_cast<float*>(dst);
-    const int dw = 4 * d4;
-#pragma unroll 4
-    for (int idx = threadIdx.x; idx < ROWS * dw; idx += THREADS) {
-        int r = idx / dw;
-        int k = idx - r * dw;
-        int row = row0 + r;
-        dsts[r * 4 * dp4 + k] = (row < total && k < d) ? src[(size_t)row * d + k] : 0.f;
-    }
-}
-
-__device__ inline float dot4(float4 a, float4 b, float acc) {
-    acc = fmaf(a.x, b.x, acc);
-    acc = fmaf(a.y, b.y, acc);
-    acc = fmaf(a.z, b.z, acc);
-    return fmaf(a.w, b.w, acc);
-}
 
 __device__ inline void axpy4(float c, float4 v, float4& acc) {
     acc.x = fmaf(c, v.x, acc.x);
@@ -367,10 +306,6 @@ int column_groups(int D) { return (depth4(D) + 31) / 32; }
 }  // namespace
 
 extern "C" {
-
-int angular_bwd_max_depth() { return MAX_D; }
-int angular_bwd_row_tile() { return BM; }
-int angular_bwd_vocab_tile() { return BV; }
 
 // Resident blocks per SM of the main kernel at depth D (-1 on error).
 int angular_bwd_blocks_per_sm(int D) {

@@ -93,37 +93,62 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _grid(b: int, v: int, device: torch.device, lib) -> tuple:
-    """``(n_chunks, tiles_per_chunk)``: the vocabulary is split into chunks of
-    whole sub-tiles so that row tiles x chunks gives about two blocks per SM.
-    A function of the shapes and the card only, so runs reproduce."""
-    n_rt = -(-b // lib.angular_row_tile())
-    n_sub = -(-v // lib.angular_vocab_tile())
-    want = -(-2 * _sm_count(device.index) // n_rt)
-    tpc = -(-n_sub // max(1, min(n_sub, want)))
-    return -(-n_sub // tpc), tpc
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(kind: str, index: int, d: int) -> int:
+    """Resident blocks per SM of K1's ``kind`` ("fwd" or "bwd") main kernel at
+    depth ``d`` on card ``index``: the runtime's occupancy query, once per
+    (kernel, card, depth)."""
+    from mmtpu_torch.kernels.build import load
+
+    with torch.cuda.device(index):
+        n = getattr(load(), f"angular_{kind}_blocks_per_sm")(d)
+    if n < 1:
+        raise RuntimeError(f"angular_{kind}_blocks_per_sm({d}) returned {n}")
+    return n
 
 
-# resident backward blocks per SM that bwd_grid fills (angular_bwd.cu at D <= 384)
-BWD_BLOCKS_PER_SM = 2
-
-
-def bwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int) -> tuple:
-    """``(n_chunks, tiles_per_chunk)`` of the backward's grid (row tiles x
-    chunks): the vocabulary's sub-tiles are cut into chunks of whole
-    sub-tiles, one block per (row tile, chunk).  Enough chunks that the blocks
-    fill the card's ``BWD_BLOCKS_PER_SM`` slots per SM in one wave, and no
-    more: each block then loads its latent tile and writes its partials once
-    for as many sub-tiles as it can.  A chunk takes at least two sub-tiles
-    wherever the blocks would still cover every SM.  A function of its
-    arguments only, so runs reproduce."""
+def _one_wave(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
+              blocks_per_sm: int) -> tuple:
+    """``(n_chunks, tiles_per_chunk)`` of a grid of row tiles x vocabulary
+    chunks of whole sub-tiles: as many chunks as one wave of the card's
+    ``blocks_per_sm * sm_count`` slots holds, and no more, so each block loads
+    its latent tile and writes its partials once for as many sub-tiles as it
+    can.  Where the row tiles alone fill the slots, one chunk.  A chunk takes
+    at least two sub-tiles wherever the blocks would still cover every SM."""
     n_rt = -(-b // row_tile)
     n_sub = -(-v // vocab_tile)
-    tpc = -(-(n_rt * n_sub) // (BWD_BLOCKS_PER_SM * sm_count))
+    tpc = -(-n_sub // max(1, blocks_per_sm * sm_count // n_rt))
     if tpc == 1 and n_rt * -(-n_sub // 2) >= sm_count:
         tpc = 2
     tpc = min(tpc, n_sub)
     return -(-n_sub // tpc), tpc
+
+
+def fwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
+             blocks_per_sm: int) -> tuple:
+    """``(n_chunks, tiles_per_chunk)`` of the forward's grid, one block per
+    (row tile, chunk).  A function of its arguments only, so runs reproduce."""
+    return _one_wave(b, v, row_tile, vocab_tile, sm_count, blocks_per_sm)
+
+
+def bwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
+             blocks_per_sm: int) -> tuple:
+    """``(n_chunks, tiles_per_chunk)`` of the backward's grid, one block per
+    (row tile, chunk).  A function of its arguments only, so runs reproduce."""
+    return _one_wave(b, v, row_tile, vocab_tile, sm_count, blocks_per_sm)
+
+
+# (card, stream) -> int32 tickets, one per row tile, that the forward kernel
+# leaves at 0; grown, never shrunk
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _TICKETS.get((device.index, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[(device.index, stream)] = t
+    return t
 
 
 def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor) -> torch.Tensor:
@@ -142,13 +167,17 @@ def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor)
     out = torch.empty((b, 1), dtype=torch.float32, device=latents.device)
     if b == 0:
         return out
-    chunks, tpc = _grid(b, v, latents.device, lib)
-    partial = torch.empty((chunks, b), dtype=torch.float32, device=latents.device)
-    with torch.cuda.device(latents.device):
+    dev = latents.device
+    row_tile = lib.angular_row_tile()
+    chunks, tpc = fwd_grid(b, v, row_tile, lib.angular_vocab_tile(), _sm_count(dev.index),
+                           _blocks_per_sm("fwd", dev.index, d))
+    partial = torch.empty((chunks, b), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        tickets = _tickets(dev, stream, -(-b // row_tile))
         err = lib.angular_fwd(latents.data_ptr(), vocab.data_ptr(), vnorm.data_ptr(),
-                              partial.data_ptr(), out.data_ptr(), b, v, d, chunks, tpc,
-                              stream)
+                              partial.data_ptr(), tickets.data_ptr(), out.data_ptr(), b, v, d,
+                              chunks, tpc, stream)
     check_launch(lib, "angular_fwd", err)
     LAUNCHES["fwd"] += 1
     return out
@@ -166,15 +195,16 @@ def angular_bwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor,
 
     _check_cuda(latents, vocab, vnorm, g)
     lib = load()
-    if latents.shape[1] > lib.angular_bwd_max_depth():
-        raise ValueError(f"angular kernel takes depth <= {lib.angular_bwd_max_depth()}")
+    if latents.shape[1] > lib.angular_max_depth():
+        raise ValueError(f"angular kernel takes depth <= {lib.angular_max_depth()}")
     b, d = latents.shape
     v = vocab.shape[0]
     dlat = torch.empty((b, d), dtype=torch.float32, device=latents.device)
     if b == 0:
         return dlat
-    chunks, tpc = bwd_grid(b, v, lib.angular_bwd_row_tile(), lib.angular_bwd_vocab_tile(),
-                           _sm_count(latents.device.index))
+    dev = latents.device
+    chunks, tpc = bwd_grid(b, v, lib.angular_row_tile(), lib.angular_vocab_tile(),
+                           _sm_count(dev.index), _blocks_per_sm("bwd", dev.index, d))
     # each vocabulary chunk's part of dl, rows padded to a multiple of 4 floats
     partial = torch.empty((chunks, b, -(-d // 4) * 4), dtype=torch.float32,
                           device=latents.device)

@@ -4,9 +4,9 @@ The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, loaded with :mod:`ctypes`: one ``nvcc -c`` per
 source, all started together, then one link.  The library is built at first
 use into ``mmtpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed
-by a hash of the sources and flags, so an edit rebuilds and an unchanged tree
-reuses what is there.  A missing ``nvcc`` or a failed build raises; nothing
-falls back.
+by a hash of the sources, the headers they include (``csrc/*.cuh``) and the
+flags, so an edit rebuilds and an unchanged tree reuses what is there.  A
+missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -49,7 +53,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -92,14 +96,14 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.angular_fwd.argtypes = [vp] * 5 + [i] * 5 + [vp]
+        lib.angular_fwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
         lib.angular_fwd.restype = i
         lib.angular_bwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
         lib.angular_bwd.restype = i
-        lib.angular_bwd_blocks_per_sm.argtypes = [i]
-        lib.angular_bwd_blocks_per_sm.restype = i
-        for fn in ("angular_max_depth", "angular_row_tile", "angular_vocab_tile",
-                   "angular_bwd_max_depth", "angular_bwd_row_tile", "angular_bwd_vocab_tile"):
+        for fn in ("angular_fwd_blocks_per_sm", "angular_bwd_blocks_per_sm"):
+            getattr(lib, fn).argtypes = [i]
+            getattr(lib, fn).restype = i
+        for fn in ("angular_max_depth", "angular_row_tile", "angular_vocab_tile"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
         lib.cuda_error_string.argtypes = [i]

@@ -28,26 +28,33 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,v", [(64, 300, 3016), (37, 300, 3001), (5, 301, 70),
-                                   (64, 301, 3016), (33, 512, 100), (1, 300, 20),
-                                   (512, 300, 3016)])
-def test_kernels_match_plain(cuda_device, b, d, v):
+@pytest.mark.parametrize("b,d,v,zero_row", [
+    (64, 300, 3016, False), (37, 300, 3001, False), (5, 301, 70, False),
+    (64, 301, 3016, False), (33, 512, 100, False), (1, 300, 20, False),
+    (512, 300, 3016, False), (2048, 300, 3016, False), (64, 300, 3016, True)])
+def test_kernels_match_plain(cuda_device, b, d, v, zero_row):
     """Both K1 kernels against their plain versions: the train batch's shape,
     a ragged one, depths that take the scalar load path (one at full tile
-    depth), the largest depth, a vocabulary below one tile with one row, and
-    the inference batch."""
+    depth), the largest depth, a vocabulary below one tile with one row, the
+    inference batch, a large batch, and a zero latent row (the forward's
+    clamped denominator; the backward is held there on the other rows).  A
+    second forward call is bit for bit equal to the first."""
     gen = torch.Generator().manual_seed(0)
     lat = torch.randn(b, d, generator=gen).to(cuda_device)
+    if zero_row:
+        lat[0] = 0.0
     vocab = torch.randn(v, d, generator=gen).to(cuda_device)
     g = torch.randn(b, 1, generator=gen).to(cuda_device)
     vn = torch.linalg.vector_norm(vocab, dim=-1)
     before = dict(K.LAUNCHES)
-    torch.testing.assert_close(K.angular_fwd(lat, vocab, vn),
-                               K.angular_partition_ref(lat, vocab), rtol=1e-5, atol=0)
-    torch.testing.assert_close(K.angular_bwd(lat, vocab, vn, g),
-                               K.angular_partition_bwd_ref(lat, vocab, vn, g),
+    z = K.angular_fwd(lat, vocab, vn)
+    torch.testing.assert_close(z, K.angular_partition_ref(lat, vocab), rtol=1e-5, atol=0)
+    rows = slice(1, None) if zero_row else slice(None)
+    torch.testing.assert_close(K.angular_bwd(lat, vocab, vn, g)[rows],
+                               K.angular_partition_bwd_ref(lat, vocab, vn, g)[rows],
                                rtol=0, atol=1e-5)
     assert K.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert torch.equal(z, K.angular_fwd(lat, vocab, vn))
 
 
 @pytest.mark.cuda

@@ -86,21 +86,38 @@ def test_wrappers_reject_bad_shapes(rng):
         K.angular_fwd(lat.to("meta"), vocab.to("meta"), vn.to("meta"))
 
 
-@pytest.mark.parametrize("b,v", [(64, 3016), (512, 3016), (2048, 3016), (37, 3001), (1, 20)])
-def test_bwd_grid_covers_every_sub_tile_once(b, v):
-    """The backward's grid at chip_smoke.py's shapes on a 132-SM card: the
-    chunks cut the vocabulary's sub-tiles into whole, non-empty ranges that
-    cover each sub-tile exactly once, and the grid depends on its arguments
-    only (no device is asked)."""
-    row_tile, vocab_tile = 32, 32
-    chunks, tpc = K.bwd_grid(b, v, row_tile, vocab_tile, 132)
-    n_sub = -(-v // vocab_tile)
+def _check_grid(grid, b, v, blocks_per_sm):
+    """A K1 grid at chip_smoke.py's shapes on a 132-SM card: the chunks cut
+    the vocabulary's sub-tiles into whole, non-empty ranges that cover each
+    sub-tile exactly once; the blocks fit in one wave of the card's
+    ``blocks_per_sm`` slots per SM (unless the row tiles alone overflow it)
+    and fill more than half of what the work allows, every SM where two
+    blocks fit per SM and there is enough work; and the grid depends on its
+    arguments only (no device is asked)."""
+    row_tile, vocab_tile, sm = 32, 32, 132
+    chunks, tpc = grid(b, v, row_tile, vocab_tile, sm, blocks_per_sm)
+    n_rt, n_sub = -(-b // row_tile), -(-v // vocab_tile)
     covered = [st for c in range(chunks) for st in range(c * tpc, min((c + 1) * tpc, n_sub))]
     assert sorted(covered) == list(range(n_sub))
     assert all(c * tpc < n_sub for c in range(chunks))
-    assert K.bwd_grid(b, v, row_tile, vocab_tile, 132) == (chunks, tpc)
-    if -(-b // row_tile) * n_sub >= 132:  # enough work: every SM gets a block
-        assert -(-b // row_tile) * chunks >= 132
+    assert grid(b, v, row_tile, vocab_tile, sm, blocks_per_sm) == (chunks, tpc)
+    assert n_rt * chunks <= max(blocks_per_sm * sm, n_rt)
+    assert 2 * n_rt * chunks > min(n_rt * n_sub, blocks_per_sm * sm)
+    if blocks_per_sm >= 2 and n_rt * n_sub >= sm:
+        assert n_rt * chunks >= sm
+
+
+# blocks_per_sm 2 is the depth of the main path (D = 300), 1 is D = 512
+@pytest.mark.parametrize("blocks_per_sm", [2, 1])
+@pytest.mark.parametrize("b,v", [(64, 3016), (512, 3016), (2048, 3016), (37, 3001), (1, 20)])
+def test_bwd_grid_covers_every_sub_tile_once(b, v, blocks_per_sm):
+    _check_grid(K.bwd_grid, b, v, blocks_per_sm)
+
+
+@pytest.mark.parametrize("blocks_per_sm", [2, 1])
+@pytest.mark.parametrize("b,v", [(64, 3016), (512, 3016), (2048, 3016), (37, 3001), (1, 20)])
+def test_fwd_grid_covers_every_sub_tile_once(b, v, blocks_per_sm):
+    _check_grid(K.fwd_grid, b, v, blocks_per_sm)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -113,11 +130,14 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
 
 
-def test_library_name_tracks_sources(monkeypatch, tmp_path):
-    """An edit of a source changes the library's name, so it rebuilds."""
+@pytest.mark.parametrize("name", ["k.cu", "k.cuh"])
+def test_library_name_tracks_sources(monkeypatch, tmp_path, name):
+    """An edit of a source, or of a header the sources include, changes the
+    library's name, so it rebuilds."""
     from mmtpu_torch.kernels import build
 
-    src = tmp_path / "k.cu"
+    (tmp_path / "main.cu").write_text('#include "k.cuh"')
+    src = tmp_path / name
     src.write_text("// one")
     monkeypatch.setattr(build, "CSRC", tmp_path)
     first = build.library_path()
