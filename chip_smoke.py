@@ -7,13 +7,14 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 0. the card's name and power limit; TF32 off for matmuls and cuDNN;
 1. build the CUDA kernel library from ``mmtpu_torch/csrc`` (one ``nvcc`` per
-   source, side by side; timed);
+   source, side by side; timed), and K1's resident blocks per SM at D = 300
+   and 512 from the runtime's occupancy query;
 2. kernel K1 (angular partition, forward and backward) against its plain
    PyTorch versions at the main path's shapes, plus a ragged shape and a
    zero latent row, with the forward and the backward each called twice and
-   required bit for bit equal; kernel and plain times at 64 and 512 rows (device time per call
-   from queued bursts, and the median of single calls) and the bounds at
-   both;
+   required bit for bit equal; kernel and plain times at 64 and 512 rows
+   (device time per call from queued bursts, and the median of single
+   calls) and the bounds at both;
 3. kernel K2 (fused decoder update, Adam and SGD) against its plain versions
    at (B, D, F) = (64, 300, 1400), (64, 300, 1536), (512, 300, 1416) and a
    ragged (37, 300, 37), with flag 1 and flag 0; times at (64, 300, 1400);

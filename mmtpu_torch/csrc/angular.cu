@@ -30,11 +30,11 @@
 // - The TPU carried each row's sum across sequential vocab grid steps; here
 //   blocks run in any order, so the vocabulary is split into chunks of whole
 //   sub-tiles across blocks (grid: mmtpu_torch/kernels/angular.py::fwd_grid)
-//   and each block writes one partial per (chunk, row).  The partials are
-//   added in a fixed order: by the last block of each row tile to finish
-//   (found through a __threadfence and a ticket per row tile, which that
-//   block resets), or by a second pass of one warp per row.  No float
-//   atomics, so runs reproduce bit for bit.
+//   and each block writes one partial per (chunk, row).  The last block of
+//   each row tile to finish (found through a __threadfence and a ticket per
+//   row tile, which that block resets) adds the row tile's partials in a
+//   fixed order: no second kernel, and no float atomics, so runs reproduce
+//   bit for bit.
 //
 // C interface, loaded with ctypes: every entry point takes device pointers
 // and the CUDA stream, launches asynchronously and returns cudaGetLastError().
@@ -42,8 +42,6 @@
 #include "angular_tile.cuh"
 
 namespace {
-
-constexpr int REDUCE_THREADS = 256;
 
 // The four lanes ks = 0..3 of a tile each hold sums over their quarter of D
 // for 4 rows x 4 columns; add them so that lane ks ends with row ks's four
@@ -68,9 +66,9 @@ __device__ inline void reduce_scatter(const float (&acc)[4][4], int ks, float (&
 }
 
 // grid (ceil(B / BM), n_chunks); chunk c covers vocab sub-tiles
-// [c * tiles_per_chunk, (c + 1) * tiles_per_chunk).  partial: (n_chunks, B).
-// With tickets (one per row tile, all 0), the last block of a row tile adds
-// its partials into out (B,) and sets its ticket back to 0.
+// [c * tiles_per_chunk, (c + 1) * tiles_per_chunk).  partial: (n_chunks, B);
+// tickets: one per row tile, all 0.  The last block of a row tile adds its
+// partials into out (B,) and sets its ticket back to 0.
 __global__ void __launch_bounds__(THREADS, 2)
 angular_fwd_kernel(const float* __restrict__ lat, const float* __restrict__ vocab,
                    const float* __restrict__ vnorm, float* __restrict__ partial,
@@ -161,7 +159,6 @@ angular_fwd_kernel(const float* __restrict__ lat, const float* __restrict__ voca
         partial[(size_t)blockIdx.y * B + b0 + tid] = rs_s[tid] + rs_s[BM + tid];
         __threadfence();  // the partial is visible to every block before the ticket
     }
-    if (tickets == nullptr) return;
     __syncthreads();
     if (tid == 0) last = atomicAdd(&tickets[blockIdx.x], 1u) == gridDim.y - 1;
     __syncthreads();
@@ -178,21 +175,6 @@ angular_fwd_kernel(const float* __restrict__ lat, const float* __restrict__ voca
     s += __shfl_xor_sync(FULL, s, 4);
     if (p == 0 && b < B) out[b] = s;
     if (tid == 0) tickets[blockIdx.x] = 0u;
-}
-
-// One warp per row: lane l adds chunks l, l + 32, ... in order, then the
-// lanes add by a fixed xor tree.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-angular_fwd_reduce(const float* __restrict__ partial, float* __restrict__ out, int B,
-                   int n_chunks) {
-    const int b = blockIdx.x * (REDUCE_THREADS / 32) + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (b >= B) return;  // the whole warp
-    float s = 0.f;
-    for (int c = lane; c < n_chunks; c += 32) s += partial[(size_t)c * B + b];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-    if (lane == 0) out[b] = s;
 }
 
 size_t fwd_smem_bytes(int d) {
@@ -227,8 +209,8 @@ int angular_fwd_blocks_per_sm(int D) {
     return n;
 }
 
-// partial: (n_chunks, B) scratch; out: (B,).  tickets: one per row tile, all
-// 0 (left 0), or null for the second pass.
+// partial: (n_chunks, B) scratch; tickets: one per row tile, all 0 (and left
+// 0 when the kernel ends); out: (B,)
 int angular_fwd(const void* lat, const void* vocab, const void* vnorm, void* partial,
                 void* tickets, void* out, int B, int V, int D, int n_chunks,
                 int tiles_per_chunk, void* stream) {
@@ -240,11 +222,6 @@ int angular_fwd(const void* lat, const void* vocab, const void* vnorm, void* par
     angular_fwd_kernel<<<grid, THREADS, fwd_smem_bytes(D), s>>>(
         (const float*)lat, (const float*)vocab, (const float*)vnorm, (float*)partial,
         (unsigned*)tickets, (float*)out, B, V, D, tiles_per_chunk);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || tickets != nullptr) return (int)err;
-    const int per_block = REDUCE_THREADS / 32;
-    angular_fwd_reduce<<<(B + per_block - 1) / per_block, REDUCE_THREADS, 0, s>>>(
-        (const float*)partial, (float*)out, B, n_chunks);
     return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,12 @@
 Replaces the Pallas TPU kernels of :mod:`mmtpu.kernels.angular`
 (``_fwd_kernel`` / ``_bwd_kernel`` and their ``custom_vjp``) with CUDA C++
 kernels for Hopper (``mmtpu_torch/csrc/angular.cu`` for the forward,
-``mmtpu_torch/csrc/angular_bwd.cu`` for the backward, built by
-:mod:`mmtpu_torch.kernels.build`).  The sources' headers say how the kernels
-are laid out and what bounds them on an H100.
+``mmtpu_torch/csrc/angular_bwd.cu`` for the backward, both on the tiles of
+``angular_tile.cuh``; built by :mod:`mmtpu_torch.kernels.build`).  The
+sources' headers say how the kernels are laid out and what bounds them on an
+H100.  Their grids come from :func:`fwd_grid` / :func:`bwd_grid`, fed the
+resident blocks per SM from the library's occupancy query at the call's
+depth.
 
 - :func:`angular_fwd` / :func:`angular_bwd` are the wrappers.  For a CUDA
   tensor each launches its kernel (and adds one to :data:`LAUNCHES`) or
@@ -107,14 +110,16 @@ def _blocks_per_sm(kind: str, index: int, d: int) -> int:
     return n
 
 
-def _one_wave(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
-              blocks_per_sm: int) -> tuple:
-    """``(n_chunks, tiles_per_chunk)`` of a grid of row tiles x vocabulary
-    chunks of whole sub-tiles: as many chunks as one wave of the card's
-    ``blocks_per_sm * sm_count`` slots holds, and no more, so each block loads
-    its latent tile and writes its partials once for as many sub-tiles as it
-    can.  Where the row tiles alone fill the slots, one chunk.  A chunk takes
-    at least two sub-tiles wherever the blocks would still cover every SM."""
+def fwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
+             blocks_per_sm: int) -> tuple:
+    """``(n_chunks, tiles_per_chunk)`` of the forward's grid, one block per
+    (row tile, vocabulary chunk of whole sub-tiles): as many chunks as one
+    wave of the card's ``blocks_per_sm * sm_count`` slots holds, and no more,
+    so each block loads its latent tile and writes its partials once for as
+    many sub-tiles as it can.  Where the row tiles alone fill the slots, one
+    chunk.  A chunk takes at least two sub-tiles wherever the blocks would
+    still cover every SM.  A function of its arguments only, so runs
+    reproduce."""
     n_rt = -(-b // row_tile)
     n_sub = -(-v // vocab_tile)
     tpc = -(-n_sub // max(1, blocks_per_sm * sm_count // n_rt))
@@ -124,18 +129,9 @@ def _one_wave(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
     return -(-n_sub // tpc), tpc
 
 
-def fwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
-             blocks_per_sm: int) -> tuple:
-    """``(n_chunks, tiles_per_chunk)`` of the forward's grid, one block per
-    (row tile, chunk).  A function of its arguments only, so runs reproduce."""
-    return _one_wave(b, v, row_tile, vocab_tile, sm_count, blocks_per_sm)
-
-
-def bwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
-             blocks_per_sm: int) -> tuple:
-    """``(n_chunks, tiles_per_chunk)`` of the backward's grid, one block per
-    (row tile, chunk).  A function of its arguments only, so runs reproduce."""
-    return _one_wave(b, v, row_tile, vocab_tile, sm_count, blocks_per_sm)
+# The backward's grid: the same rule, which gave the fastest of the measured
+# chunk sizes for both kernels at 64 and 512 rows (scripts/torch_k1_grid.py).
+bwd_grid = fwd_grid
 
 
 # (card, stream) -> int32 tickets, one per row tile, that the forward kernel

@@ -8,10 +8,8 @@ range of row counts.  On one CUDA card.
     python3 scripts/torch_k1_grid.py [--tpc 1,2,3,4,6,8,12,24]
                                      [--rows 8,16,32,64,128,256,512,2048]
 
-One JSON object per line.  Per chunk size: kernel, reduction (the forward's
-"fold", the last block of a row tile adding the partials, or "pass", a
-second kernel of one warp per row), rows, tiles per chunk, chunks, blocks,
-device ms per call (CUDA events over bursts queued behind a GPU-side sleep,
+One JSON object per line.  Per chunk size: kernel, rows, tiles per chunk,
+chunks, blocks, device ms per call (CUDA events over bursts queued behind a GPU-side sleep,
 as chip_smoke.py times), the largest difference from the wrapper's result,
 and whether the grid is the wrapper's own (``fwd_grid`` / ``bwd_grid``).
 Per row count: the forward wrapper's and the plain version's device ms.  It
@@ -62,7 +60,8 @@ def main() -> int:
         lat = torch.randn(b, D, generator=gen).to(dev)
         voc = torch.randn(V, D, generator=gen).to(dev)
         voc = voc / torch.linalg.vector_norm(voc, dim=-1, keepdim=True)
-        return lat, voc, torch.linalg.vector_norm(voc, dim=-1), torch.randn(b, 1, generator=gen).to(dev)
+        g = torch.randn(b, 1, generator=gen).to(dev)
+        return lat, voc, torch.linalg.vector_norm(voc, dim=-1), g
 
     stream = torch.cuda.current_stream().cuda_stream
     for b in (64, 512):
@@ -73,32 +72,30 @@ def main() -> int:
         for kind, (default, want) in cases.items():
             for tpc in sorted({int(x) for x in args.tpc.split(",")} | {default[1]}):
                 chunks = -(-n_sub // tpc)
-                for red in (("fold", "pass") if kind == "fwd" else ("pass",)):
-                    if kind == "fwd":
-                        partial = torch.empty(chunks, b, device=dev)
-                        out = torch.empty(b, 1, device=dev)
-                        tickets = torch.zeros(n_rt, dtype=torch.int32, device=dev)
-                        tp = tickets.data_ptr() if red == "fold" else None
+                if kind == "fwd":
+                    partial = torch.empty(chunks, b, device=dev)
+                    tickets = torch.zeros(n_rt, dtype=torch.int32, device=dev)
+                    out = torch.empty(b, 1, device=dev)
 
-                        def call():
-                            check_launch(lib, "angular_fwd", lib.angular_fwd(
-                                lat.data_ptr(), voc.data_ptr(), vn.data_ptr(), partial.data_ptr(),
-                                tp, out.data_ptr(), b, V, D, chunks, tpc, stream))
-                    else:
-                        partial = torch.empty(chunks, b, -(-D // 4) * 4, device=dev)
-                        out = torch.empty(b, D, device=dev)
+                    def call():
+                        check_launch(lib, "angular_fwd", lib.angular_fwd(
+                            lat.data_ptr(), voc.data_ptr(), vn.data_ptr(), partial.data_ptr(),
+                            tickets.data_ptr(), out.data_ptr(), b, V, D, chunks, tpc, stream))
+                else:
+                    partial = torch.empty(chunks, b, -(-D // 4) * 4, device=dev)
+                    out = torch.empty(b, D, device=dev)
 
-                        def call():
-                            check_launch(lib, "angular_bwd", lib.angular_bwd(
-                                lat.data_ptr(), voc.data_ptr(), vn.data_ptr(), g.data_ptr(),
-                                partial.data_ptr(), out.data_ptr(), b, V, D, chunks, tpc, stream))
+                    def call():
+                        check_launch(lib, "angular_bwd", lib.angular_bwd(
+                            lat.data_ptr(), voc.data_ptr(), vn.data_ptr(), g.data_ptr(),
+                            partial.data_ptr(), out.data_ptr(), b, V, D, chunks, tpc, stream))
 
-                    ms = _device_ms(torch, call)
-                    row = {"kernel": kind, "reduction": red, "b": b, "tpc": tpc, "chunks": chunks,
-                           "blocks": n_rt * chunks, "ms": ms,
-                           "max_abs_vs_wrapper": (out - want).abs().max().item(),
-                           "wrapper_grid": (chunks, tpc) == default}
-                    print(json.dumps(row), flush=True)
+                ms = _device_ms(torch, call)
+                row = {"kernel": kind, "b": b, "tpc": tpc, "chunks": chunks,
+                       "blocks": n_rt * chunks, "ms": ms,
+                       "max_abs_vs_wrapper": (out - want).abs().max().item(),
+                       "wrapper_grid": (chunks, tpc) == default}
+                print(json.dumps(row), flush=True)
 
     for b in (int(x) for x in args.rows.split(",")):
         lat, voc, vn, _ = inputs(b)

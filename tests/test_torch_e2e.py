@@ -1,6 +1,7 @@
 """The port's e2e slice against mmtpu's: its own config/data copies, the e2e
 fit (dense and fused, SGD and Adam, semi-supervised), ``run_experiment``
-with ``e2e=True`` fed mmtpu's draws, and the CLI with ``--e2e y``.
+with ``e2e=True`` fed mmtpu's draws (MOSI MMB2 and MMB1, POM, IEMOCAP), and
+the CLI with ``--e2e y``.
 
 Tolerances are the repo's: losses rtol 2e-4; embeddings, decoder, sentiment
 parameters and predictions atol 2e-4 (float32 summed in another order,
@@ -164,16 +165,19 @@ def test_fit_e2e_unported_options_raise(kw):
         te2e.fit_e2e(torch.zeros(4, 3), {}, {}, {}, torch.zeros(4), torch.zeros(5, 3), {}, spec)
 
 
-@pytest.mark.parametrize("opt,norm,extra", [
-    ("sgd", "batch_norm", {"semi_sup_idxes": "0.5"}),
-    ("adam", "layer_norm", {"freeze_weights": True}),
+@pytest.mark.parametrize("dataset,opt,norm,extra", [
+    ("mosi", "sgd", "batch_norm", {"semi_sup_idxes": "0.5"}),
+    ("mosi", "adam", "layer_norm", {"freeze_weights": True}),
+    ("mosi", "adam", "layer_norm", {"unimodal": True}),  # MMB1
+    ("pom", "sgd", "batch_norm", {}),
+    ("iemocap", "adam", "layer_norm", {}),
 ])
-def test_run_experiment_e2e_matches_mmtpu(tmp_path, opt, norm, extra):
-    cfg = jconfig.ExperimentConfig(dataset="mosi", n_epochs=2, n_sentiment_epochs=3,
+def test_run_experiment_e2e_matches_mmtpu(tmp_path, dataset, opt, norm, extra):
+    cfg = jconfig.ExperimentConfig(dataset=dataset, n_epochs=2, n_sentiment_epochs=3,
                                    batch_size=8, e2e=True, norm=norm, optimizer=opt, lr=1e-3,
                                    sentiment_lr=1e-2, likelihood_weight=0.3,
                                    config_name="e2e", seed=4, **extra)
-    prep = _tiny_prep()
+    prep = _tiny_prep(dataset)
     want = jrunner.run_experiment(cfg, out_root=str(tmp_path / "jax"), prep=prep,
                                   verbose=False)
     got = trunner.run_experiment(tconfig.ExperimentConfig(**cfg.to_dict()),
