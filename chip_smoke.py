@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 0. the card's name and power limit; TF32 off for matmuls and cuDNN;
 1. build the CUDA kernel library from ``mmtpu_torch/csrc`` (one ``nvcc`` per
-   source, side by side; timed), and K1's resident blocks per SM at D = 300
-   and 512 from the runtime's occupancy query;
+   source, side by side; timed), K1's resident blocks per SM at D = 300
+   and 512 and K2's (Adam and SGD; at any depth) from the runtime's
+   occupancy query;
 2. kernel K1 (angular partition, forward and backward) against its plain
    PyTorch versions at the main path's shapes, plus a ragged shape and a
    zero latent row, with the forward and the backward each called twice and
@@ -16,8 +17,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    (device time per call from queued bursts, and the median of single
    calls) and the bounds at both;
 3. kernel K2 (fused decoder update, Adam and SGD) against its plain versions
-   at (B, D, F) = (64, 300, 1400), (64, 300, 1536), (512, 300, 1416) and a
-   ragged (37, 300, 37), with flag 1 and flag 0; times at (64, 300, 1400);
+   at (B, D, F) = (64, 300, 1400), (64, 300, 1536), (512, 300, 1416) and the
+   ragged (37, 300, 37) and (33, 300, 1401), with flag 1 and flag 0, each
+   called twice and required bit for bit equal; the CUDA kernels that one
+   call of each kind issues, counted under ``torch.profiler`` (exactly one);
+   times and bounds at (64, 300, 1400) and (512, 300, 1416);
 4. the non-e2e path through the normal entry point,
    ``mmtpu_torch.run.main([cfg, "mosi", "--e2e", "n", "--device", "cuda",
    ...])``: the MMB2 latent fit at full MOSI width (synthetic data:
@@ -61,8 +65,10 @@ SHAPES = [(64, 300, 3016, False), (512, 300, 3016, False), (2048, 300, 3016, Fal
 FWD_SUM_REL, FWD_RTOL = 1e-5, 1e-5  # the TPU kernel's gate (bench.py) and tests
 GRAD_MAX_REL, GRAD_ATOL = 1e-3, 1e-5
 # (B, D, F) of K2: the train batch at the stacked MOSI head width (pos 2), the
-# width the TPU code padded to, the inference batch at pos 4, a ragged shape
-K2_SHAPES = [(64, 300, 1400), (64, 300, 1536), (512, 300, 1416), (37, 300, 37)]
+# width the TPU code padded to, the inference batch at pos 4, ragged shapes
+# (the last with F odd: the kernel's scalar edge path)
+K2_SHAPES = [(64, 300, 1400), (64, 300, 1536), (512, 300, 1416), (37, 300, 37),
+             (33, 300, 1401)]
 K2_RTOL, K2_ATOL, K2_GX_MAX_REL = 1e-5, 1e-5, 1e-5  # the TPU kernel's tests
 N_EPOCHS, N_SENTIMENT_EPOCHS = 3, 10
 STEPS_PER_EPOCH = -(-1284 // 64)
@@ -254,28 +260,60 @@ def check_k2(torch, T, dev) -> dict:
             flag = torch.tensor(on, device=dev)
             for kind, fns in _k2_calls(T, t, flag).items():
                 got, want = fns["kernel"](), fns["plain"]()
+                # g_x's partials are added in a fixed order (no atomics)
+                same = all(torch.equal(a, g) for a, g in zip(fns["kernel"](), got))
                 torch.cuda.synchronize()
                 worst, gx_abs, gx_rel = compare_k2(kind, got, want, t, on, (b, d, f))
                 err[kind] = max(err[kind], worst, gx_abs)
                 log(f"[k2] {kind} B={b} D={d} F={f} flag={on:.0f}: tables max abs "
-                    f"{worst:.3e}; g_x max abs {gx_abs:.3e}, max-rel {gx_rel:.3e}")
+                    f"{worst:.3e}; g_x max abs {gx_abs:.3e}, max-rel {gx_rel:.3e}; "
+                    f"repeat bit-equal {same}")
+                if not same:
+                    raise AssertionError(f"K2-{kind} differs between two calls at {(b, d, f)}")
 
-    b, d, f = K2_SHAPES[0]
-    t = _k2_case(torch, dev, gen, b, d, f)
-    fns = _k2_calls(T, t, torch.tensor(1.0, device=dev))
     times, bounds = {}, {}
-    for kind in ("adam", "sgd"):
-        times[kind] = {k: _device_ms(torch, fn) for k, fn in fns[kind].items()}
-        calls = {k: _call_ms(torch, fn) for k, fn in fns[kind].items()}
-        tables = 3 if kind == "adam" else 1
-        ops = 4 * b * d * f + K2_ELEMENTWISE_OPS[kind] * d * f
-        nbytes = 4 * (2 * tables * d * f + b * f + 2 * b * d)
-        bounds[kind] = bound_ms(ops, nbytes)
-        log(f"[k2] {kind} B={b} D={d} F={f}: device ms kernel {times[kind]['kernel']:.4f} "
-            f"plain {times[kind]['plain']:.4f}; one call ms kernel {calls['kernel']:.4f} "
-            f"plain {calls['plain']:.4f}; bound {bounds[kind][0]:.5f} ms ({bounds[kind][1]}: "
-            f"{ops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+    for b, d, f in ((64, 300, 1400), (512, 300, 1416)):
+        t = _k2_case(torch, dev, gen, b, d, f)
+        fns = _k2_calls(T, t, torch.tensor(1.0, device=dev))
+        if b == 64:
+            for kind in ("adam", "sgd"):
+                n = _k2_device_kernels(torch, fns[kind]["kernel"])
+                log(f"[k2] {kind} B={b}: one call issues {n} CUDA kernel(s) (torch.profiler)")
+                if n != 1:
+                    raise AssertionError(f"one K2-{kind} call issued {n} CUDA kernels, not 1")
+        for kind in ("adam", "sgd"):
+            tk = {k: _device_ms(torch, fn) for k, fn in fns[kind].items()}
+            times.setdefault(kind, {})[b] = tk
+            calls = {k: _call_ms(torch, fn) for k, fn in fns[kind].items()}
+            tables = 3 if kind == "adam" else 1
+            ops = 4 * b * d * f + K2_ELEMENTWISE_OPS[kind] * d * f
+            nbytes = 4 * (2 * tables * d * f + b * f + 2 * b * d)
+            bk = bounds.setdefault(kind, {})[b] = bound_ms(ops, nbytes)
+            log(f"[k2] {kind} B={b} D={d} F={f}: device ms kernel {tk['kernel']:.4f} "
+                f"plain {tk['plain']:.4f}; one call ms kernel {calls['kernel']:.4f} "
+                f"plain {calls['plain']:.4f}; bound {bk[0]:.5f} ms ({bk[1]}: "
+                f"{ops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
     return {"err": err, "times": times, "bounds": bounds}
+
+
+def _k2_device_kernels(torch, fn) -> int:
+    """The CUDA kernels that one call of ``fn`` issues, as torch.profiler's
+    device events count them; raises where the profiler sees no device work
+    at all (then it cannot tell)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # allocations and scratch of the first call stay out of the count
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device event for a K2 call: it "
+                             "cannot count the call's kernels on this machine")
+    log(f"[k2] profiled device events of one call: {kernels}")
+    return len(kernels)
 
 
 def _reset_launches(K, T) -> None:
@@ -536,8 +574,11 @@ def main() -> int:
     lib = build.load()
     occupancy = {f"{kind} D={d}": getattr(lib, f"angular_{kind}_blocks_per_sm")(d)
                  for kind in ("fwd", "bwd") for d in (300, 512)}
+    k2_occupancy = {kind: lib.dec_update_blocks_per_sm(int(kind == "adam"))
+                    for kind in ("adam", "sgd")}
     log(f"[build] kernel library built and loaded in {time.perf_counter() - t0:.2f} s; "
-        f"K1 resident blocks per SM: {occupancy}")
+        f"K1 resident blocks per SM: {occupancy}; K2 resident blocks per SM (D = 300 and "
+        f"any D): {k2_occupancy}")
 
     k1 = check_kernels(torch, K, dev)
     k2 = check_k2(torch, T, dev)
@@ -567,9 +608,14 @@ def main() -> int:
          "source": "mmtpu_torch/csrc/decoder_update.cu",
          "replaces": f"mmtpu/kernels/decoder_update.py:{line}",
          "launches": fused[kind]["launches"][f"k2_{kind}"], "max_abs_err": k2["err"][kind],
-         "ms": k2["times"][kind]["kernel"], "plain_ms": k2["times"][kind]["plain"],
-         "bound_ms": k2["bounds"][kind][0], "bound_by": k2["bounds"][kind][1],
-         "library_ms": None}
+         "ms": k2["times"][kind][64]["kernel"], "plain_ms": k2["times"][kind][64]["plain"],
+         "bound_ms": k2["bounds"][kind][64][0], "bound_by": k2["bounds"][kind][64][1],
+         "library_ms": None,
+         "ms_b64": k2["times"][kind][64]["kernel"], "bound_ms_b64": k2["bounds"][kind][64][0],
+         "ms_b512": k2["times"][kind][512]["kernel"],
+         "plain_ms_b512": k2["times"][kind][512]["plain"],
+         "bound_ms_b512": k2["bounds"][kind][512][0],
+         "bound_by_b512": k2["bounds"][kind][512][1]}
         for kind, line in (("adam", 166), ("sgd", 210))
     ], "launches_by_path": by_path,
         "paths": {"non_e2e": {k: non_e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},

@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from mmtpu_torch.kernels.build import Tickets, sm_count
 from mmtpu_torch.ops.wordprob import _ACOS_CLIP, _COS_EPS
 from mmtpu_torch.ops.wordprob import angular_partition as angular_partition_ref
 
@@ -92,11 +93,6 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _blocks_per_sm(kind: str, index: int, d: int) -> int:
     """Resident blocks per SM of K1's ``kind`` ("fwd" or "bwd") main kernel at
     depth ``d`` on card ``index``: the runtime's occupancy query, once per
@@ -134,17 +130,8 @@ def fwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
 bwd_grid = fwd_grid
 
 
-# (card, stream) -> int32 tickets, one per row tile, that the forward kernel
-# leaves at 0; grown, never shrunk
-_TICKETS: dict = {}
-
-
-def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    t = _TICKETS.get((device.index, stream))
-    if t is None or t.numel() < n:
-        t = torch.zeros(n, dtype=torch.int32, device=device)
-        _TICKETS[(device.index, stream)] = t
-    return t
+# the forward kernel's tickets, one per row tile
+_TICKETS = Tickets()
 
 
 def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor) -> torch.Tensor:
@@ -165,12 +152,12 @@ def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor)
         return out
     dev = latents.device
     row_tile = lib.angular_row_tile()
-    chunks, tpc = fwd_grid(b, v, row_tile, lib.angular_vocab_tile(), _sm_count(dev.index),
+    chunks, tpc = fwd_grid(b, v, row_tile, lib.angular_vocab_tile(), sm_count(dev.index),
                            _blocks_per_sm("fwd", dev.index, d))
     partial = torch.empty((chunks, b), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        tickets = _tickets(dev, stream, -(-b // row_tile))
+        tickets = _TICKETS(dev, stream, -(-b // row_tile))
         err = lib.angular_fwd(latents.data_ptr(), vocab.data_ptr(), vnorm.data_ptr(),
                               partial.data_ptr(), tickets.data_ptr(), out.data_ptr(), b, v, d,
                               chunks, tpc, stream)
@@ -200,7 +187,7 @@ def angular_bwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor,
         return dlat
     dev = latents.device
     chunks, tpc = bwd_grid(b, v, lib.angular_row_tile(), lib.angular_vocab_tile(),
-                           _sm_count(dev.index), _blocks_per_sm("bwd", dev.index, d))
+                           sm_count(dev.index), _blocks_per_sm("bwd", dev.index, d))
     # each vocabulary chunk's part of dl, rows padded to a multiple of 4 floats
     partial = torch.empty((chunks, b, -(-d // 4) * 4), dtype=torch.float32,
                           device=latents.device)

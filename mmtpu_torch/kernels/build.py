@@ -12,6 +12,7 @@ missing ``nvcc`` or a failed build raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -108,14 +109,45 @@ def load() -> ctypes.CDLL:
             getattr(lib, fn).restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        lib.dec_update_adam.argtypes = [vp] * 11 + [i] * 3 + [vp]
+        f = ctypes.c_float
+        lib.dec_update_adam.argtypes = [vp] * 5 + [vp, f] * 4 + [vp] * 6 + [i] * 5 + [vp]
         lib.dec_update_adam.restype = i
-        lib.dec_update_sgd.argtypes = [vp] * 7 + [i] * 3 + [vp]
+        lib.dec_update_sgd.argtypes = [vp] * 3 + [vp, f] * 2 + [vp] * 4 + [i] * 5 + [vp]
         lib.dec_update_sgd.restype = i
-        lib.dec_update_f_tile.argtypes = []
-        lib.dec_update_f_tile.restype = i
+        lib.dec_update_blocks_per_sm.argtypes = [i]
+        lib.dec_update_blocks_per_sm.restype = i
+        for fn in ("dec_update_d_tile", "dec_update_f_tile", "dec_update_batch_chunk"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA card ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class Tickets:
+    """A kernel's int32 tickets on each (card, stream): zeros that the kernel
+    takes and sets back to 0 before it ends, so calls queued on one stream
+    each find them at 0.  Allocated at first use, grown, never shrunk; each
+    kernel that counts its blocks this way keeps its own."""
+
+    def __init__(self) -> None:
+        self._bufs: dict = {}
+
+    def __call__(self, device, stream: int, n: int):
+        import torch
+
+        t = self._bufs.get((device.index, stream))
+        if t is None or t.numel() < n:
+            t = torch.zeros(n, dtype=torch.int32, device=device)
+            self._bufs[(device.index, stream)] = t
+        return t
 
 
 def check_launch(lib: ctypes.CDLL, fn: str, err: int) -> None:

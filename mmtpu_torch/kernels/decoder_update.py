@@ -6,7 +6,10 @@ kernel for Hopper (``mmtpu_torch/csrc/decoder_update.cu``, built by
 :mod:`mmtpu_torch.kernels.build`).  One call computes ``g_w = x^T g_z``, the
 torch-Adam or SGD step of the weight table (gated by ``flag``) and the latent
 cotangent ``g_x = g_z w^T`` with the pre-update ``w``.  The source's header
-says how the kernel is laid out and what bounds it on an H100.
+says how the kernel is laid out and what bounds it on an H100.  One call is
+one launch; its grid comes from K1's :func:`mmtpu_torch.kernels.angular.fwd_grid`
+(D tiles for row tiles, F sub-tiles for vocabulary sub-tiles), fed the
+resident blocks per SM from the library's occupancy query.
 
 - :func:`fused_gemm_adam_update` / :func:`fused_gemm_sgd_update` are the
   wrappers, with mmtpu's arguments and return order.  For CUDA tensors each
@@ -19,15 +22,21 @@ says how the kernel is laid out and what bounds it on an H100.
   (torch twins of mmtpu's ``xla_reference_adam`` / ``xla_reference_sgd``)
   that the tests and ``chip_smoke.py`` hold the kernel to.
 
-``lr``, ``bc1``, ``bc2`` and ``flag`` may be numbers or 0-d tensors; on the
-card they travel to the kernel as one ``(4,)`` float32 device tensor, so a
-caller that keeps them on the device never waits for the host.
+``lr``, ``bc1``, ``bc2`` and ``flag`` may be numbers or 0-d tensors.  On the
+card each travels to the kernel on its own: a 0-d tensor on the card by its
+device pointer (converted to float32 there only where it is not already), a
+number or a host tensor by value.  A caller that keeps them on the device
+never waits for the host.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from mmtpu_torch.kernels.angular import fwd_grid
+from mmtpu_torch.kernels.build import Tickets, sm_count
 from mmtpu_torch.train.optim import _B1, _B2, _EPS
 
 # kernel launches by wrapper; read (and reset) by chip_smoke.py
@@ -85,36 +94,71 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _scalars(device, lr, bc1, bc2, flag) -> torch.Tensor:
-    """``(lr, bc1, bc2, flag)`` as one ``(4,)`` float32 tensor on ``device``;
-    numbers are filled in on the device, not copied from the host."""
-    parts = [s.to(device=device, dtype=torch.float32).reshape(()) if isinstance(s, torch.Tensor)
-             else torch.full((), float(s), dtype=torch.float32, device=device)
-             for s in (lr, bc1, bc2, flag)]
-    return torch.stack(parts)
+def _scalar(s, device) -> tuple:
+    """``(pointer, value, keep)`` of one scalar argument for the kernel.  A
+    0-d tensor on the card travels by its device pointer, converted to
+    float32 on ``device`` only where its dtype or device differs (``keep``
+    holds the copy until the launch is queued); a number, or a tensor on the
+    host, travels by value.  Nothing waits for the card."""
+    if isinstance(s, torch.Tensor):
+        if s.numel() != 1:
+            raise ValueError(f"decoder update: scalar argument of shape {tuple(s.shape)}")
+        if s.device.type == "cpu":
+            return None, float(s), None
+        if s.device != device or s.dtype != torch.float32:
+            s = s.to(device=device, dtype=torch.float32)
+        return s.data_ptr(), 0.0, s
+    return None, float(s), None
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(kind: str, index: int) -> int:
+    """Resident blocks per SM of the ``kind`` kernel on card ``index``: the
+    runtime's occupancy query, once per (kernel, card)."""
+    from mmtpu_torch.kernels.build import load
+
+    with torch.cuda.device(index):
+        n = load().dec_update_blocks_per_sm(int(kind == "adam"))
+    if n < 1:
+        raise RuntimeError(f"dec_update_blocks_per_sm({kind}) returned {n}")
+    return n
+
+
+# the kernel's tickets, one per (D tile, batch chunk)
+_TICKETS = Tickets()
 
 
 def _launch(kind: str, x, g_z, w, m, v, scalars):
     from mmtpu_torch.kernels.build import check_launch, load
 
     lib = load()
+    dev = w.device
     (b, d), f = x.shape, w.shape[1]
-    n_ftiles = -(-f // lib.dec_update_f_tile())
-    partial = torch.empty((n_ftiles, b, d), dtype=torch.float32, device=w.device)
-    g_x = torch.empty((b, d), dtype=torch.float32, device=w.device)
+    d_tile, b_chunk = lib.dec_update_d_tile(), lib.dec_update_batch_chunk()
+    # K1's forward grid rule, with D tiles for row tiles and F sub-tiles for
+    # vocabulary sub-tiles
+    chunks, tpc = fwd_grid(d, f, d_tile, lib.dec_update_f_tile(), sm_count(dev.index),
+                           _blocks_per_sm(kind, dev.index))
+    # one (D tile, batch chunk) region per ticket, a padded slab per chunk in each
+    regions = -(-d // d_tile) * -(-b // b_chunk)
+    partial = torch.empty(regions * chunks * b_chunk * d_tile, dtype=torch.float32, device=dev)
+    g_x = torch.empty((b, d), dtype=torch.float32, device=dev)
     w2 = torch.empty_like(w)
-    with torch.cuda.device(w.device):
+    args = [_scalar(s, dev) for s in scalars]
+    flat = [a for p, val, _ in args for a in (p, val)]
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        tickets = _TICKETS(dev, stream, regions)
+        tail = (partial.data_ptr(), tickets.data_ptr(), g_x.data_ptr(), b, d, f, chunks, tpc,
+                stream)
         if kind == "adam":
             m2, v2 = torch.empty_like(m), torch.empty_like(v)
             err = lib.dec_update_adam(x.data_ptr(), g_z.data_ptr(), w.data_ptr(), m.data_ptr(),
-                                      v.data_ptr(), scalars.data_ptr(), w2.data_ptr(),
-                                      m2.data_ptr(), v2.data_ptr(), partial.data_ptr(),
-                                      g_x.data_ptr(), b, d, f, stream)
+                                      v.data_ptr(), *flat, w2.data_ptr(), m2.data_ptr(),
+                                      v2.data_ptr(), *tail)
         else:
-            err = lib.dec_update_sgd(x.data_ptr(), g_z.data_ptr(), w.data_ptr(),
-                                     scalars.data_ptr(), w2.data_ptr(), partial.data_ptr(),
-                                     g_x.data_ptr(), b, d, f, stream)
+            err = lib.dec_update_sgd(x.data_ptr(), g_z.data_ptr(), w.data_ptr(), *flat,
+                                     w2.data_ptr(), *tail)
     check_launch(lib, f"dec_update_{kind}", err)
     LAUNCHES[kind] += 1
     return (w2, m2, v2, g_x) if kind == "adam" else (w2, g_x)
@@ -132,7 +176,7 @@ def fused_gemm_adam_update(w, m, v, x, g_z, lr, bc1, bc2, flag):
     _check(w, x, g_z, m, v)
     if _on_cpu(w, m, v, x, g_z):
         return reference_adam(w, m, v, x, g_z, lr, bc1, bc2, flag)
-    return _launch("adam", x, g_z, w, m, v, _scalars(w.device, lr, bc1, bc2, flag))
+    return _launch("adam", x, g_z, w, m, v, (lr, bc1, bc2, flag))
 
 
 def fused_gemm_sgd_update(w, x, g_z, lr, flag):
@@ -140,4 +184,4 @@ def fused_gemm_sgd_update(w, x, g_z, lr, flag):
     _check(w, x, g_z)
     if _on_cpu(w, x, g_z):
         return reference_sgd(w, x, g_z, lr, flag)
-    return _launch("sgd", x, g_z, w, None, None, _scalars(w.device, lr, 0.0, 0.0, flag))
+    return _launch("sgd", x, g_z, w, None, None, (lr, flag))

@@ -98,11 +98,16 @@ def test_small_run_matches_cpu(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,f", [(64, 300, 1400), (37, 300, 37), (5, 7, 300)])
+@pytest.mark.parametrize("b,d,f", [(64, 300, 1400), (37, 300, 37), (5, 7, 300),
+                                   (512, 300, 1416), (64, 300, 1536), (33, 300, 1401),
+                                   (64, 301, 1400)])
 @pytest.mark.parametrize("kind", ["adam", "sgd"])
 def test_k2_matches_plain(cuda_device, kind, b, d, f):
     """K2 against its plain version with flag 1 and flag 0 (w, m, v then come
-    back bit for bit): the train batch's shape and ragged ones."""
+    back bit for bit): the train batch's shape, the inference batch (several
+    batch chunks), the width the TPU code padded to, and ragged ones (F not a
+    multiple of 4 and D not a multiple of 4 take the scalar edge paths).  A
+    second call is bit for bit equal to the first."""
     gen = torch.Generator().manual_seed(2)
     r = lambda *s: torch.randn(*s, generator=gen).to(cuda_device)
     # every output table far above atol 1e-5, so an error in any element shows
@@ -126,6 +131,34 @@ def test_k2_matches_plain(cuda_device, kind, b, d, f):
             if on == 0.0:
                 assert torch.equal(g, t)
         torch.testing.assert_close(got[-1], want[-1], rtol=1e-5, atol=1e-5)
+        again = (T.fused_gemm_adam_update(*args) if kind == "adam"
+                 else T.fused_gemm_sgd_update(w, x, gz, lr, flag))
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_k2_scalar_arguments(cuda_device, kind):
+    """lr, bc1, bc2 and flag as numbers, as float32 scalars on the card (by
+    pointer), as float64 scalars on the card (converted) and as host scalars
+    give the same bits, one launch per call."""
+    gen = torch.Generator().manual_seed(4)
+    r = lambda *s: torch.randn(*s, generator=gen).to(cuda_device)
+    w, m, v, x, gz = 0.05 * r(300, 1400), 0.1 * r(300, 1400), 0.01 * (1.0 + r(300, 1400).abs()), \
+        r(64, 300), r(64, 1400)
+    nums = (1e-3, 0.41, 0.005, 1.0)
+    forms = [nums,
+             tuple(torch.tensor(a, device=cuda_device) for a in nums),
+             tuple(torch.tensor(a, dtype=torch.float64, device=cuda_device) for a in nums),
+             tuple(torch.tensor(a) for a in nums)]
+    outs = []
+    for lr, bc1, bc2, flag in forms:
+        before = T.LAUNCHES[kind]
+        outs.append(T.fused_gemm_adam_update(w, m, v, x, gz, lr, bc1, bc2, flag)
+                    if kind == "adam" else T.fused_gemm_sgd_update(w, x, gz, lr, flag))
+        assert T.LAUNCHES[kind] == before + 1
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
 
 
 @pytest.mark.cuda

@@ -102,6 +102,37 @@ def test_k2_zero_pad_columns_stay_zero(rng, kind):
         assert torch.count_nonzero(t[:, :9]) > 0
 
 
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_k2_scalar_arguments_give_the_same_result(rng, kind):
+    """lr, bc1, bc2 and flag as numbers, as 0-d float32 tensors and as 0-d
+    tensors of other dtypes (float64, and an int flag) give the same plain
+    result bit for bit; on the card each travels to the kernel by value or
+    by its device pointer (tests/test_torch_cuda.py)."""
+    a = {k: _t(v) for k, v in _k2_inputs(rng, 6, 5, 13).items()}
+    nums = (0.01, 0.1, 0.001, 1)
+    forms = [nums, tuple(torch.tensor(float(n)) for n in nums),
+             tuple(torch.tensor(float(n), dtype=torch.float64) for n in nums[:3])
+             + (torch.tensor(1),)]
+    outs = []
+    for lr, bc1, bc2, flag in forms:
+        outs.append(tk.fused_gemm_adam_update(a["w"], a["m"], a["v"], a["x"], a["g_z"], lr, bc1,
+                                              bc2, flag) if kind == "adam"
+                    else tk.fused_gemm_sgd_update(a["w"], a["x"], a["g_z"], lr, flag))
+    for out in outs[1:]:
+        assert all(torch.equal(p, q) for p, q in zip(out, outs[0]))
+
+
+def test_k2_scalars_on_the_host_travel_by_value():
+    """A number or a host tensor goes to the kernel by value, with no device
+    pointer and nothing to keep alive; a scalar must have one element."""
+    dev = torch.device("cpu")
+    assert tk._scalar(0.5, dev) == (None, 0.5, None)
+    assert tk._scalar(torch.tensor(2.5, dtype=torch.float64), dev) == (None, 2.5, None)
+    assert tk._scalar(torch.tensor([3]), dev) == (None, 3.0, None)
+    with pytest.raises(ValueError, match="scalar"):
+        tk._scalar(torch.zeros(2), dev)
+
+
 def test_k2_wrappers_reject_what_the_kernel_does_not_take():
     w, x, gz = torch.zeros(4, 6), torch.zeros(3, 4), torch.zeros(3, 6)
     with pytest.raises(ValueError, match="disagree"):

@@ -8,6 +8,9 @@ tests/test_kernels.py).  The CUDA kernels themselves are compared with the
 plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -86,15 +89,16 @@ def test_wrappers_reject_bad_shapes(rng):
         K.angular_fwd(lat.to("meta"), vocab.to("meta"), vn.to("meta"))
 
 
-def _check_grid(grid, b, v, blocks_per_sm):
-    """A K1 grid at chip_smoke.py's shapes on a 132-SM card: the chunks cut
-    the vocabulary's sub-tiles into whole, non-empty ranges that cover each
-    sub-tile exactly once; the blocks fit in one wave of the card's
-    ``blocks_per_sm`` slots per SM (unless the row tiles alone overflow it)
-    and fill more than half of what the work allows, every SM where two
-    blocks fit per SM and there is enough work; and the grid depends on its
-    arguments only (no device is asked)."""
-    row_tile, vocab_tile, sm = 32, 32, 132
+def _check_grid(grid, b, v, blocks_per_sm, row_tile=32, vocab_tile=32):
+    """A K1 grid at chip_smoke.py's shapes on a 132-SM card (or K2's, with D
+    tiles for row tiles and F sub-tiles for vocabulary sub-tiles): the chunks
+    cut the sub-tiles into whole, non-empty ranges that cover each sub-tile
+    exactly once; the blocks fit in one wave of the card's ``blocks_per_sm``
+    slots per SM (unless the row tiles alone overflow it) and fill more than
+    half of what the work allows, every SM where two blocks fit per SM and
+    there is enough work; and the grid depends on its arguments only (no
+    device is asked).  Returns ``(chunks, tiles per chunk)``."""
+    sm = 132
     chunks, tpc = grid(b, v, row_tile, vocab_tile, sm, blocks_per_sm)
     n_rt, n_sub = -(-b // row_tile), -(-v // vocab_tile)
     covered = [st for c in range(chunks) for st in range(c * tpc, min((c + 1) * tpc, n_sub))]
@@ -105,6 +109,7 @@ def _check_grid(grid, b, v, blocks_per_sm):
     assert 2 * n_rt * chunks > min(n_rt * n_sub, blocks_per_sm * sm)
     if blocks_per_sm >= 2 and n_rt * n_sub >= sm:
         assert n_rt * chunks >= sm
+    return chunks, tpc
 
 
 # blocks_per_sm 2 is the depth of the main path (D = 300), 1 is D = 512
@@ -118,6 +123,32 @@ def test_bwd_grid_covers_every_sub_tile_once(b, v, blocks_per_sm):
 @pytest.mark.parametrize("b,v", [(64, 3016), (512, 3016), (2048, 3016), (37, 3001), (1, 20)])
 def test_fwd_grid_covers_every_sub_tile_once(b, v, blocks_per_sm):
     _check_grid(K.fwd_grid, b, v, blocks_per_sm)
+
+
+def _k2_tiles():
+    """K2's (D tile, F sub-tile, batch chunk), read from its source."""
+    src = (Path(K.__file__).resolve().parent.parent / "csrc" / "decoder_update.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+                 for n in ("DT", "FT", "BB"))
+
+
+# blocks_per_sm 2 is what the occupancy query gives K2 on an H100; 1 is a
+# card or build where only one fits
+@pytest.mark.parametrize("blocks_per_sm", [2, 1])
+@pytest.mark.parametrize("b,d,f", [(64, 300, 1400), (512, 300, 1416), (37, 300, 37),
+                                   (5, 7, 300)])
+def test_k2_grid_covers_every_tile_once(b, d, f, blocks_per_sm):
+    """K2's grid (K1's rule, D tiles for row tiles, F sub-tiles for
+    vocabulary sub-tiles) covers every (D tile, F sub-tile) exactly once in
+    one wave that it fills more than half of, and its blocks' stages cover
+    every (D tile, F sub-tile, batch chunk) exactly once."""
+    d_tile, f_tile, b_chunk = _k2_tiles()
+    chunks, tpc = _check_grid(K.fwd_grid, d, f, blocks_per_sm, d_tile, f_tile)
+    n_sub, nbc = -(-f // f_tile), -(-b // b_chunk)
+    stages = [(dt, st, c) for dt in range(-(-d // d_tile)) for ch in range(chunks)
+              for st in range(ch * tpc, min((ch + 1) * tpc, n_sub)) for c in range(nbc)]
+    assert sorted(stages) == sorted(set(stages))
+    assert len(stages) == -(-d // d_tile) * n_sub * nbc
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
