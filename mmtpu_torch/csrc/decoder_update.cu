@@ -191,21 +191,8 @@ __device__ inline float dot4(float4 a, float4 b, float acc) {
     return fmaf(a.w, b.w, acc);
 }
 
-// Row `row` (4 floats from column f) of a (D, F) table into registers:
-// one 16-byte load where vec and the row is in range, else masked scalars.
-__device__ inline float4 load4(const float* __restrict__ t, int row, int f, int D, int F,
-                               bool vec) {
-    float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row >= D || f >= F) return r;
-    const size_t o = (size_t)row * F + f;
-    if (vec) return *reinterpret_cast<const float4*>(t + o);
-    r.x = t[o];
-    if (f + 1 < F) r.y = t[o + 1];
-    if (f + 2 < F) r.z = t[o + 2];
-    if (f + 3 < F) r.w = t[o + 3];
-    return r;
-}
-
+// Four floats of row `row` from column f of a (D, F) table: one 16-byte
+// store where vec, else masked scalars.
 __device__ inline void store4(float* __restrict__ t, int row, int f, int D, int F, bool vec,
                               float4 a) {
     if (row >= D || f >= F) return;

@@ -29,12 +29,11 @@ over: the kernel serves every row count.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
-from mmtpu_torch.kernels.build import Tickets, sm_count
+from mmtpu_torch.kernels.build import Tickets, blocks_per_sm, sm_count
 from mmtpu_torch.ops.wordprob import _ACOS_CLIP, _COS_EPS
 from mmtpu_torch.ops.wordprob import angular_partition as angular_partition_ref
 
@@ -92,20 +91,6 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"angular kernel: unsupported device {t.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(kind: str, index: int, d: int) -> int:
-    """Resident blocks per SM of K1's ``kind`` ("fwd" or "bwd") main kernel at
-    depth ``d`` on card ``index``: the runtime's occupancy query, once per
-    (kernel, card, depth)."""
-    from mmtpu_torch.kernels.build import load
-
-    with torch.cuda.device(index):
-        n = getattr(load(), f"angular_{kind}_blocks_per_sm")(d)
-    if n < 1:
-        raise RuntimeError(f"angular_{kind}_blocks_per_sm({d}) returned {n}")
-    return n
-
-
 def fwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
              blocks_per_sm: int) -> tuple:
     """``(n_chunks, tiles_per_chunk)`` of the forward's grid, one block per
@@ -153,7 +138,7 @@ def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor)
     dev = latents.device
     row_tile = lib.angular_row_tile()
     chunks, tpc = fwd_grid(b, v, row_tile, lib.angular_vocab_tile(), sm_count(dev.index),
-                           _blocks_per_sm("fwd", dev.index, d))
+                           blocks_per_sm("angular_fwd_blocks_per_sm", dev.index, d))
     partial = torch.empty((chunks, b), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -187,7 +172,8 @@ def angular_bwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor,
         return dlat
     dev = latents.device
     chunks, tpc = bwd_grid(b, v, lib.angular_row_tile(), lib.angular_vocab_tile(),
-                           sm_count(dev.index), _blocks_per_sm("bwd", dev.index, d))
+                           sm_count(dev.index),
+                           blocks_per_sm("angular_bwd_blocks_per_sm", dev.index, d))
     # each vocabulary chunk's part of dl, rows padded to a multiple of 4 floats
     partial = torch.empty((chunks, b, -(-d // 4) * 4), dtype=torch.float32,
                           device=latents.device)

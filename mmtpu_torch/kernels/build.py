@@ -131,6 +131,20 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(query: str, index: int, arg: int) -> int:
+    """Resident blocks per SM that the library's occupancy query ``query``
+    (``angular_fwd_blocks_per_sm`` and the like) reports on card ``index``
+    for ``arg``, once per (query, card, arg)."""
+    import torch
+
+    with torch.cuda.device(index):
+        n = getattr(load(), query)(arg)
+    if n < 1:
+        raise RuntimeError(f"{query}({arg}) returned {n}")
+    return n
+
+
 class Tickets:
     """A kernel's int32 tickets on each (card, stream): zeros that the kernel
     takes and sets back to 0 before it ends, so calls queued on one stream

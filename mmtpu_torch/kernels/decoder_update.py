@@ -31,12 +31,10 @@ never waits for the host.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from mmtpu_torch.kernels.angular import fwd_grid
-from mmtpu_torch.kernels.build import Tickets, sm_count
+from mmtpu_torch.kernels.build import Tickets, blocks_per_sm, sm_count
 from mmtpu_torch.train.optim import _B1, _B2, _EPS
 
 # kernel launches by wrapper; read (and reset) by chip_smoke.py
@@ -111,19 +109,6 @@ def _scalar(s, device) -> tuple:
     return None, float(s), None
 
 
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(kind: str, index: int) -> int:
-    """Resident blocks per SM of the ``kind`` kernel on card ``index``: the
-    runtime's occupancy query, once per (kernel, card)."""
-    from mmtpu_torch.kernels.build import load
-
-    with torch.cuda.device(index):
-        n = load().dec_update_blocks_per_sm(int(kind == "adam"))
-    if n < 1:
-        raise RuntimeError(f"dec_update_blocks_per_sm({kind}) returned {n}")
-    return n
-
-
 # the kernel's tickets, one per (D tile, batch chunk)
 _TICKETS = Tickets()
 
@@ -138,7 +123,8 @@ def _launch(kind: str, x, g_z, w, m, v, scalars):
     # K1's forward grid rule, with D tiles for row tiles and F sub-tiles for
     # vocabulary sub-tiles
     chunks, tpc = fwd_grid(d, f, d_tile, lib.dec_update_f_tile(), sm_count(dev.index),
-                           _blocks_per_sm(kind, dev.index))
+                           blocks_per_sm("dec_update_blocks_per_sm", dev.index,
+                                         int(kind == "adam")))
     # one (D tile, batch chunk) region per ticket, a padded slab per chunk in each
     regions = -(-d // d_tile) * -(-b // b_chunk)
     partial = torch.empty(regions * chunks * b_chunk * d_tile, dtype=torch.float32, device=dev)
