@@ -49,14 +49,15 @@
 //   rows and reads, per row, one float4 of x (two addresses per warp,
 //   broadcast) and one float4 of g_z (16 consecutive): 3 shared wavefronts
 //   per 16 warp FMAs, 0.19 per FMA (the SM serves one wavefront while it
-//   issues four warp FMAs, so the FMAs set the pace; PR 2's kernel read one
-//   scalar per FMA pair, 0.5).  g_x: each thread holds 4 (b) x 4 (d) dot
+//   issues four warp FMAs, so the FMAs set the pace; one scalar load per
+//   FMA pair would give 0.5).  g_x: each thread holds 4 (b) x 4 (d) dot
 //   products over its quarter's columns, reading float4s along F from rows
 //   at an odd float4 stride (rows bg + 16 i and dg + 4 j: consecutive rows
 //   per warp, distinct banks): 8 wavefronts per 64 warp FMAs, 0.125 per FMA
-//   (PR 2's kernel: 1.25).  The quarters add through shared memory in
-//   quarter order; each thread keeps one row of each tile: one float4 of
-//   the step and one batch row of g_x.
+//   (scalar loads, one of g_z and four of w per four FMAs, would give
+//   1.25).  The quarters add through shared memory in quarter order; each
+//   thread keeps one row of each tile: one float4 of the step and one batch
+//   row of g_x.
 // - g_x across blocks without a second kernel or float atomics.  Where B <=
 //   BB the block keeps its g_x partial in registers across its sub-tiles and
 //   writes it once; otherwise it writes (or, after its first sub-tile, adds
