@@ -36,11 +36,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    SGD and once with Adam, each timed after one untimed warm-up epoch;
 7. small configs on the GPU and on the CPU (where the kernel wrappers use
    their plain versions), which must agree: the non-e2e run and the fused
-   e2e fit.
+   e2e fit;
+8. lazy Adam: the e2e run through ``run.main`` on an Adam config with and
+   without ``--lazy_adam`` (held to each other at mmtpu's drift tolerance,
+   their training rates printed side by side), then ``fit_e2e`` with the
+   fused decoder update and lazy Adam (K2-adam twice per step);
+9. the non-e2e run with ``--validation_curve`` (samples at epoch 0 and at
+   the end; K1 launched for the two refits of the valid split on top of
+   phase 4's count), and the Adam training fit checkpointed one epoch per
+   segment, killed after its first save, resumed from epoch 1 and held to
+   the uninterrupted fit bit for bit.
 
-Around each path of phases 4-6 the kernel launch counts are set to 0 just
-before and read just after.  The line before the last is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+Phases 8 and 9 run inside the temporary directory of phases 4-6, before
+phase 7.  Around each path of phases 4-6, 8 and 9 the kernel launch counts
+are set to 0 just before and read just after.  The line before the last is
+the kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the rest of the repository beside it, the script exits
 non-zero and prints no result.
 """
@@ -77,6 +87,14 @@ PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 # elementwise operations per weight element of a K2 step, beside its two
 # products: Adam's moments, bias corrections, sqrt, eps, divide and step; SGD's step
 K2_ELEMENTWISE_OPS = {"adam": 14, "sgd": 2}
+# lazy against dense Adam (phase 8; final loss, post embeddings): mmtpu's own
+# drift check (tests/test_train_parity.py::test_lazy_adam_matches_dense). On
+# the CPU this phase measured 0 and 5.0e-8 (the kernels' plain versions).
+LAZY_LOSS_RTOL, LAZY_EMB_ATOL = 2e-3, 1e-5
+# a resumed fit against the uninterrupted one (phase 9): bit for bit. Every
+# kernel of the fit adds in a fixed order (K1, K2 and cuBLAS on one stream),
+# the checkpoint holds float32 exactly, and autograd reaches no index backward
+RESUME_RTOL, RESUME_ATOL = 0.0, 0.0
 
 
 def log(msg: str) -> None:
@@ -276,8 +294,8 @@ def check_k2(torch, T, dev) -> dict:
         t = _k2_case(torch, dev, gen, b, d, f)
         fns = _k2_calls(T, t, torch.tensor(1.0, device=dev))
         if b == 64:
-            for kind in ("adam", "sgd"):
-                n = _k2_device_kernels(torch, fns[kind]["kernel"])
+            counts = _k2_device_kernels(torch, {k: fns[k]["kernel"] for k in ("adam", "sgd")})
+            for kind, n in counts.items():
                 log(f"[k2] {kind} B={b}: one call issues {n} CUDA kernel(s) (torch.profiler)")
                 if n != 1:
                     raise AssertionError(f"one K2-{kind} call issued {n} CUDA kernels, not 1")
@@ -296,24 +314,39 @@ def check_k2(torch, T, dev) -> dict:
     return {"err": err, "times": times, "bounds": bounds}
 
 
-def _k2_device_kernels(torch, fn) -> int:
-    """The CUDA kernels that one call of ``fn`` issues, as torch.profiler's
-    device events count them; raises where the profiler sees no device work
-    at all (then it cannot tell)."""
-    from torch.profiler import ProfilerActivity, profile
+def _k2_device_kernels(torch, fns: dict) -> dict:
+    """The CUDA kernels that one call of each of ``fns`` issues, as
+    torch.profiler's device events count them.  All calls go through one
+    profiler session (a second session in a process can record no device
+    events), each call in its own ``record_function`` range that ends after
+    a synchronise; a kernel belongs to the range its start falls in.  Raises
+    where the profiler sees no device work at all (then it cannot tell)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()  # allocations and scratch of the first call stay out of the count
+    for fn in fns.values():
+        fn()  # allocations and scratch of the first calls stay out of the count
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        for kind, fn in fns.items():
+            with record_function(f"k2_call_{kind}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda and not e.name.startswith("k2_call_")]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device event for a K2 call: it "
                              "cannot count the call's kernels on this machine")
-    log(f"[k2] profiled device events of one call: {kernels}")
-    return len(kernels)
+    counts = {}
+    for kind in fns:
+        span = next(e.time_range for e in events
+                    if e.name == f"k2_call_{kind}" and e.device_type != cuda)
+        names = [e.name for e in kernels if span.start <= e.time_range.start <= span.end]
+        log(f"[k2] profiled device events of one {kind} call: {names}")
+        counts[kind] = len(names)
+    if sum(counts.values()) != len(kernels):
+        raise AssertionError(f"{len(kernels)} device events, {counts} inside the calls' ranges")
+    return counts
 
 
 def _reset_launches(K, T) -> None:
@@ -336,15 +369,16 @@ def smoke_config(e2e: bool) -> dict:
                 n_sentiment_epochs=N_SENTIMENT_EPOCHS, norm="layer_norm", lr=1e-4)
 
 
-def run_cli_path(torch, K, T, tmp: str, e2e: bool) -> dict:
-    """Phases 4 and 5: one MOSI run through ``mmtpu_torch.run.main``."""
+def run_cli_path(torch, K, T, tmp: str, e2e: bool, flags=(), tag=None, **cfg_over) -> dict:
+    """One MOSI run through ``mmtpu_torch.run.main`` (phases 4, 5, 8 and 9):
+    the smoke config with ``cfg_over``, the CLI ``flags``."""
     import numpy as np
 
     import mmtpu_torch.runner as runner
     from mmtpu_torch.run import main
 
-    tag = "e2e" if e2e else "non-e2e"
-    cfg = smoke_config(e2e)
+    tag = tag or ("e2e" if e2e else "non-e2e")
+    cfg = dict(smoke_config(e2e), **cfg_over)
     cfg_path = os.path.join(tmp, f"config_{tag}.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
@@ -355,13 +389,13 @@ def run_cli_path(torch, K, T, tmp: str, e2e: bool) -> dict:
     fits = []
     originals = {"fit_latents": runner.fit_latents, "fit_e2e": runner.fit_e2e}
 
-    def timed(name, trains):  # times each fit; the run is unchanged
+    def timed(name, trains):  # times each fit and keeps its result; the run is unchanged
         def fit(init_embed, *args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = originals[name](init_embed, *args, **kw)
             torch.cuda.synchronize()
-            fits.append((int(init_embed.shape[0]), trains(args), time.perf_counter() - t0))
+            fits.append((int(init_embed.shape[0]), trains(args), time.perf_counter() - t0, out))
             return out
         return fit
 
@@ -371,7 +405,7 @@ def run_cli_path(torch, K, T, tmp: str, e2e: bool) -> dict:
     try:
         t0 = time.perf_counter()
         rc = main([cfg_path, "mosi", "--e2e", "y" if e2e else "n", "--device", "cuda",
-                   "--out_root", out_root, "--data_dir", data_dir])
+                   "--out_root", out_root, "--data_dir", data_dir, *flags])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -394,14 +428,15 @@ def run_cli_path(torch, K, T, tmp: str, e2e: bool) -> dict:
         if launches[k] < steps:
             raise AssertionError(f"{k} launched {launches[k]} times in the {tag} path, "
                                  f"expected at least {steps}")
-    train_s = sum(s for n, trains, s in fits if trains)
+    train_s = sum(s for n, trains, s, _ in fits if trains)
     train_utt_s = 1284 * N_EPOCHS / train_s
     log(f"[{tag}] run.main wall {wall:.3f} s; train fit {train_s:.3f} s = "
         f"{train_utt_s:.1f} utt/s ({N_EPOCHS} epochs x 1284); fits "
-        f"{[(n, round(s, 4)) for n, _, s in fits]}; final loss {losses[-1]:.4f}; "
+        f"{[(n, round(s, 4)) for n, _, s, _ in fits]}; final loss {losses[-1]:.4f}; "
         f"launches {launches}")
     return {"launches": launches, "wall_s": wall, "train_utt_s": train_utt_s,
-            "final_loss": float(losses[-1])}
+            "final_loss": float(losses[-1]), "post": post, "folder": folder,
+            "train_fit": next(out for _, trains, _, out in fits if trains)}
 
 
 def _e2e_inputs(torch, cfg: dict, data_dir: str, dev, kind: str) -> tuple:
@@ -482,6 +517,138 @@ def run_fused_path(torch, K, T, tmp: str) -> dict:
         out[kind] = {"launches": res[True]["launches"], "loss_rel": loss_rel,
                      "utt_s_dense": utt_s[False], "utt_s_fused": utt_s[True]}
     return out
+
+
+def run_lazy_path(torch, K, T, tmp: str) -> dict:
+    """Phase 8: lazy Adam at full MOSI width.  The e2e run through
+    ``run.main`` on an Adam config with and without ``--lazy_adam`` (same
+    draws), held to each other at the lazy tolerance; then ``fit_e2e`` with
+    the fused decoder update and lazy Adam, which must launch K2-adam twice
+    per step and end on the lazy run's training loss (the fused check's
+    tolerance)."""
+    import numpy as np
+
+    from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
+
+    dense = run_cli_path(torch, K, T, tmp, True, tag="e2e-adam", optimizer="adam")
+    lazy = run_cli_path(torch, K, T, tmp, True, ["--lazy_adam"], tag="e2e-adam-lazy",
+                        optimizer="adam")
+    loss_rel = abs(lazy["final_loss"] - dense["final_loss"]) / abs(dense["final_loss"])
+    emb_abs = float(np.abs(lazy["post"] - dense["post"]).max())
+    log(f"[lazy] e2e Adam run.main, lazy against dense: final loss rel {loss_rel:.3e}, post "
+        f"embeddings max abs {emb_abs:.3e}; train fit utt/s dense {dense['train_utt_s']:.1f} "
+        f"lazy {lazy['train_utt_s']:.1f}")
+    if not (loss_rel < LAZY_LOSS_RTOL and emb_abs < LAZY_EMB_ATOL):
+        raise AssertionError("the lazy-Adam run disagrees with the dense one")
+
+    data_dir = os.path.join(tmp, "data")
+    emb0, dec, sen, data, labels, vocab, hp, perms, ecfg = _e2e_inputs(
+        torch, smoke_config(True), data_dir, torch.device("cuda", 0), "adam")
+    spec = E2EFitSpec(n_epochs_max=ecfg.n_epochs, batch_size=ecfg.batch_size, unimodal=False,
+                      opt_kind="adam", fused_dec_update=True, lazy_adam=True)
+    fit_e2e(emb0, dec, sen, data, labels, vocab, hp, dataclasses.replace(spec, n_epochs_max=1),
+            perms=perms[:1])  # untimed warm-up epoch
+    torch.cuda.synchronize()
+    _reset_launches(K, T)
+    t0 = time.perf_counter()
+    fit = fit_e2e(emb0, dec, sen, data, labels, vocab, hp, spec, perms=perms)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_launches(K, T)
+    steps = ecfg.n_epochs * STEPS_PER_EPOCH
+    if launches["k2_adam"] != 2 * steps or launches["k2_sgd"] != 0:
+        raise AssertionError(f"the fused lazy fit launched K2 {launches}, expected "
+                             f"{2 * steps} K2-adam")
+    if min(launches["k1_fwd"], launches["k1_bwd"]) < steps:
+        raise AssertionError(f"K1 launched {launches} times in the fused lazy fit")
+    fused_rel = abs(float(fit[3][-1]) - lazy["final_loss"]) / abs(lazy["final_loss"])
+    utt_s = 1284 * ecfg.n_epochs / secs
+    log(f"[lazy] fused + lazy e2e fit: final loss rel {fused_rel:.3e} against the lazy run; "
+        f"{utt_s:.1f} utt/s; launches {launches}")
+    if not (torch.isfinite(fit[0]).all() and fused_rel < 1e-3):
+        raise AssertionError("the fused lazy e2e fit disagrees with the lazy run")
+    return {"launches": {"e2e_adam": dense["launches"], "e2e_adam_lazy": lazy["launches"],
+                         "fused_lazy_adam": launches},
+            "loss_rel": loss_rel, "emb_abs": emb_abs, "fused_loss_rel": fused_rel,
+            "utt_s_dense": dense["train_utt_s"], "utt_s_lazy": lazy["train_utt_s"],
+            "utt_s_fused_lazy": utt_s}
+
+
+def run_curve_and_resume(torch, K, T, tmp: str, non_e2e: dict) -> dict:
+    """Phase 9: the non-e2e run through ``run.main`` with
+    ``--validation_curve`` (phase 4's run plus two refits of the valid split,
+    at epoch 0 and after the last); then the Adam training fit checkpointed
+    one epoch per segment, killed after its first save, resumed, and held to
+    the uninterrupted fit."""
+    import numpy as np
+
+    from mmtpu_torch.io.checkpoint import Checkpointer
+    from mmtpu_torch.train.chunked import fit_latents_checkpointed
+    from mmtpu_torch.train.latents import LatentFitSpec, fit_latents
+    from mmtpu_torch.tree import tree_leaves
+
+    run = run_cli_path(torch, K, T, tmp, False, ["--validation_curve"], tag="non-e2e-curve")
+    curve = run["train_fit"][3].cpu().numpy()
+    sampled = [True] + [False] * (N_EPOCHS - 1) + [True]
+    if list(np.isfinite(curve)) != sampled:
+        raise AssertionError(f"validation curve {curve}: samples expected at {sampled}")
+    written = np.loadtxt(os.path.join(run["folder"], "embed_valid_loss.txt"))
+    if written.shape != (2,) or not np.array_equal(written, curve[np.isfinite(curve)]):
+        raise AssertionError(f"embed_valid_loss.txt holds {written}, the curve {curve}")
+    refit_steps = 2 * N_EPOCHS * -(-229 // 512)
+    for k in ("k1_fwd", "k1_bwd"):
+        if run["launches"][k] - non_e2e["launches"][k] != refit_steps:
+            raise AssertionError(f"{k}: {run['launches'][k]} launches with the curve, "
+                                 f"{non_e2e['launches'][k]} without; expected {refit_steps} more")
+    log(f"[curve] validation curve {curve.tolist()}; K1 launches {run['launches']} "
+        f"(+{refit_steps} each for the refits)")
+
+    emb0, dec, _, data, _, vocab, hp, perms, ecfg = _e2e_inputs(
+        torch, smoke_config(False), os.path.join(tmp, "data"), torch.device("cuda", 0), "adam")
+    spec = LatentFitSpec(n_epochs_max=ecfg.n_epochs, batch_size=ecfg.batch_size,
+                         train_decoder=True, unimodal=False, opt_kind="adam")
+    whole = fit_latents(emb0, dec, data, vocab, hp, spec, perms=perms)
+    ck = Checkpointer(os.path.join(tmp, "resume"))
+    save = ck.save
+
+    def save_then_die(step, tree, extra=None):
+        save(step, tree, extra)
+        raise KeyboardInterrupt
+
+    ck.save = save_then_die
+    try:
+        fit_latents_checkpointed(emb0, dec, data, vocab, hp, spec, checkpointer=ck,
+                                 segment_epochs=1, perms=perms)
+    except KeyboardInterrupt:
+        pass
+    else:
+        raise AssertionError("the checkpointed fit went on past its first save")
+    ck.save = save
+    if ck.latest_step() != 1:
+        raise AssertionError(f"checkpoint at epoch {ck.latest_step()}, expected 1")
+    _reset_launches(K, T)
+    t0 = time.perf_counter()
+    resumed = fit_latents_checkpointed(emb0, dec, data, vocab, hp, spec, checkpointer=ck,
+                                       segment_epochs=1, perms=perms)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_launches(K, T)
+    if launches["k1_fwd"] != (N_EPOCHS - 1) * STEPS_PER_EPOCH:
+        raise AssertionError(f"the resumed fit launched K1 {launches['k1_fwd']} times: "
+                             f"it did not start at epoch 1")
+    pairs = [(resumed[0], whole[0]), (resumed[2], whole[2])] + list(
+        zip(tree_leaves(resumed[1]), tree_leaves(whole[1])))
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    emb_abs = (resumed[0] - whole[0]).abs().max().item()
+    loss_rel = ((resumed[2] - whole[2]).abs() / whole[2].abs()).max().item()
+    log(f"[resume] resumed at epoch 1 ({secs:.3f} s, launches {launches}); against the "
+        f"uninterrupted fit: bit-equal {bit_equal}, embeddings max abs {emb_abs:.3e}, losses "
+        f"max rel {loss_rel:.3e}")
+    if not (emb_abs <= RESUME_ATOL and loss_rel <= RESUME_RTOL):
+        raise AssertionError("the resumed fit disagrees with the uninterrupted one")
+    return {"launches": {"validation_curve": run["launches"], "resumed": launches},
+            "curve": [float(c) if np.isfinite(c) else None for c in curve],
+            "bit_equal": bit_equal, "emb_abs": emb_abs, "loss_rel": loss_rel}
 
 
 def check_small_agreement(torch) -> None:
@@ -586,11 +753,14 @@ def main() -> int:
         non_e2e = run_cli_path(torch, K, T, tmp, e2e=False)
         e2e = run_cli_path(torch, K, T, tmp, e2e=True)
         fused = run_fused_path(torch, K, T, tmp)
+        lazy = run_lazy_path(torch, K, T, tmp)
+        resume = run_curve_and_resume(torch, K, T, tmp, non_e2e)
     check_small_agreement(torch)
 
     t, kb = k1["times"], k1["bounds"]
     by_path = {"non_e2e": non_e2e["launches"], "e2e": e2e["launches"],
-               "fused_sgd": fused["sgd"]["launches"], "fused_adam": fused["adam"]["launches"]}
+               "fused_sgd": fused["sgd"]["launches"], "fused_adam": fused["adam"]["launches"],
+               **lazy["launches"], **resume["launches"]}
     k1_path = {"fwd": e2e["launches"]["k1_fwd"], "bwd": e2e["launches"]["k1_bwd"]}
     record = {"kernels": [
         {"name": f"K1-{kind} angular_partition", "route": "cuda", "source": source,
@@ -621,7 +791,9 @@ def main() -> int:
         "paths": {"non_e2e": {k: non_e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},
                   "e2e": {k: e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},
                   "fused": {k: {m: v[m] for m in ("loss_rel", "utt_s_dense", "utt_s_fused")}
-                            for k, v in fused.items()}},
+                            for k, v in fused.items()},
+                  "lazy": {k: v for k, v in lazy.items() if k != "launches"},
+                  "curve_and_resume": {k: v for k, v in resume.items() if k != "launches"}},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,6 +9,11 @@ The port imports neither jax nor ``mmtpu``.  It keeps its own copies of the
 numpy-only parts of ``mmtpu`` that it needs: :mod:`mmtpu_torch.config`
 (experiment configs, the grid) and :mod:`mmtpu_torch.data` (loading,
 synthesis, numpy preparation).
+
+Ported and running: the MMB1/MMB2 latent fit and the e2e fit with their
+inference fits, the sentiment MLP, reports, artifacts and the CLI
+(:mod:`mmtpu_torch.run`), including ``--lazy_adam``, ``--validation_curve``
+and ``--resume_dir``.  What is not ported yet raises :func:`not_ported`.
 """
 
 __version__ = "0.1.0"

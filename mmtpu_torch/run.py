@@ -8,7 +8,8 @@ Usage::
         [--lr_decay F] [--early_stopping] [--sentiment_epochs N]
         [--emotion E] [--optimizer {sgd,adam}] [--norm {layer_norm,batch_norm}]
         [--likelihood_weight F] [--data_dir DIR] [--out_root DIR] [--parity]
-        [--seed N] [--no_artifacts]
+        [--seed N] [--no_artifacts] [--lazy_adam] [--validation_curve]
+        [--resume_dir DIR]
 
 ``--device`` (default ``cuda``) picks the device; asking for CUDA where
 there is none raises, nothing falls back to the CPU.  Accepted for
@@ -17,10 +18,14 @@ compatibility and without effect: ``--cuda``/``--cuda_device`` (use
 port's own kernel wrapper: the CUDA kernel on a CUDA device) and
 ``--precision`` (the port computes in float32 and leaves TF32 at PyTorch's
 default, off for matmuls).  ``--e2e`` (or the config's ``e2e`` key, true
-in every grid config) picks the joint fit or the likelihood-only one.  Flags
-of parts not ported yet (``--time_test``, ``--validation_curve``, ``--mesh``,
-``--lazy_adam``, ``--resume_dir``, ``--profile``) raise
-``NotImplementedError``.
+in every grid config) picks the joint fit or the likelihood-only one.
+``--lazy_adam`` runs an Adam config's fits with epoch-level lazy Adam;
+``--validation_curve`` writes the recursive validation curve (a refit of the
+valid split every 80 epochs and after the last) as ``embed_valid_loss``;
+``--resume_dir DIR`` checkpoints the non-e2e training fit in epoch segments
+under ``DIR`` (``DIR_run<r>`` for each run when ``n_runs > 1``) and resumes
+from it.  Flags of parts not ported yet (``--time_test``, ``--mesh``,
+``--profile``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -126,7 +131,8 @@ def main(argv=None) -> int:
             time_test=args.time_test,
             validation_curve=args.validation_curve,
             mesh=args.mesh,
-            resume_dir=args.resume_dir,
+            resume_dir=(f"{args.resume_dir}_run{r}" if args.resume_dir and cfg.n_runs > 1
+                        else args.resume_dir),
             lazy_adam=args.lazy_adam,
             device=device,
         )

@@ -30,8 +30,10 @@ from mmtpu_torch.data.pipeline import PreparedData, prepare_device_data
 from mmtpu_torch.data.registry import load_dataset
 from mmtpu_torch.eval.report import full_loss, iemocap_loss, pom_loss
 from mmtpu_torch.io.artifacts import ArtifactStore
+from mmtpu_torch.io.checkpoint import Checkpointer
 from mmtpu_torch.models.decoder import NORM_CODES, init_decoder
 from mmtpu_torch.models.sentiment import apply_sentiment, init_sentiment
+from mmtpu_torch.train.chunked import fit_latents_checkpointed
 from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
 from mmtpu_torch.train.latents import LatentFitSpec, fit_latents, train_view
 from mmtpu_torch.train.optim import OPT_CODES
@@ -182,14 +184,23 @@ def run_experiment(
     ``final_train_loss``, ``diverged``, ``sentiment``).  A config whose
     final loss or embeddings are not finite is recorded as diverged; the run
     goes on.  ``draws`` defaults to ``Draws(cfg.seed + run_idx)``.
+
+    ``validation_curve=True`` refits the valid split against the frozen
+    decoder every 80 epochs and after the last (the reference's recursive
+    validation, ``simplesif.py:146-159``) and writes that curve's samples as
+    ``embed_valid_loss``.  ``resume_dir`` makes the non-e2e training fit
+    resumable in epoch segments (:mod:`mmtpu_torch.train.chunked`; a killed
+    run restarted with the same directory goes on where it stopped).
+    ``lazy_adam=True`` runs the training and inference fits with epoch-level
+    lazy Adam (an Adam config only; the sweep's default in mmtpu).
     """
     for flag, what, item in ((mesh is not None, "mesh", "queue 1, parallel"),
-                             (resume_dir is not None, "resume_dir", "queue 1, chunked/resume"),
-                             (validation_curve, "validation_curve", "queue 1, validation curve"),
-                             (lazy_adam, "lazy_adam", "queue 1, lazy Adam"),
                              (time_test, "time_test", "queue 1, closed form and serving")):
         if flag:
             raise not_ported(what, item)
+    if resume_dir is not None and cfg.e2e:
+        raise ValueError("--resume_dir supports non-e2e fits only "
+                         "(pass --e2e n or set e2e: false in the config)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
@@ -216,6 +227,9 @@ def run_experiment(
     t_train_start = time.time()
     semi_mask = semi_sup_mask(cfg.dataset, cfg.semi_sup_idxes, prep.labels["train"].shape[0],
                               seed=cfg.seed, data_dir=data_dir)
+    valid_every = 80 if validation_curve else 0  # the reference's valid_niter * 8
+    validation = (init["valid"], split["valid"]) if validation_curve else None
+    valid_curve = None
     if cfg.e2e:
         labels = to_torch(prep.labels["train"], device)
         n_out = 1 if labels.ndim == 1 else labels.shape[-1]
@@ -223,14 +237,18 @@ def run_experiment(
                                                      n_out), device)
         espec = E2EFitSpec(n_epochs_max=cfg.n_epochs, batch_size=cfg.batch_size,
                            unimodal=cfg.unimodal, word_metric=cfg.word_sim_metric,
-                           opt_kind=cfg.optimizer)
+                           opt_kind=cfg.optimizer, valid_every=valid_every,
+                           lazy_adam=lazy_adam)
         # e2e freeze_weights: the heads freeze, the norm still trains
         e2e_hp = dict(hp, train_heads=torch.tensor(float(not cfg.freeze_weights),
                                                    device=device))
         perms = draws.train_permutations(init["train"].shape[0], cfg.n_epochs)
-        train_embed, decoder, _, train_losses = fit_e2e(
+        out = fit_e2e(
             init["train"], decoder, senti0, split["train"], labels, vocab, e2e_hp, espec,
-            senti_mask=None if semi_mask is None else to_torch(semi_mask, device), perms=perms)
+            senti_mask=None if semi_mask is None else to_torch(semi_mask, device), perms=perms,
+            validation=validation)
+        train_embed, decoder, _, train_losses = out[:4]
+        valid_curve = out[4] if validation_curve else None
     else:
         spec = LatentFitSpec(
             n_epochs_max=cfg.n_epochs,
@@ -239,10 +257,19 @@ def run_experiment(
             unimodal=cfg.unimodal,
             word_metric=cfg.word_sim_metric,
             opt_kind=cfg.optimizer,
+            valid_every=valid_every,
+            lazy_adam=lazy_adam,
         )
         perms = draws.train_permutations(init["train"].shape[0], cfg.n_epochs)
-        train_embed, decoder, train_losses = fit_latents(
-            init["train"], decoder, split["train"], vocab, hp, spec, perms=perms)
+        if resume_dir is not None and not validation_curve:
+            train_embed, decoder, train_losses = fit_latents_checkpointed(
+                init["train"], decoder, split["train"], vocab, hp, spec,
+                checkpointer=Checkpointer(resume_dir), verbose=verbose, perms=perms)
+        else:
+            out = fit_latents(init["train"], decoder, split["train"], vocab, hp, spec,
+                              perms=perms, validation=validation)
+            train_embed, decoder, train_losses = out[:3]
+            valid_curve = out[3] if validation_curve else None
 
     # inference = the fit with the decoder frozen; valid/test are unshuffled
     # at batch_size*8 (simplesif.py:458-459)
@@ -254,6 +281,7 @@ def run_experiment(
         word_metric=cfg.word_sim_metric,
         shuffle=False,
         opt_kind=cfg.optimizer,
+        lazy_adam=lazy_adam,
     )
     valid_embed, _, valid_losses = fit_latents(init["valid"], decoder, split["valid"], vocab,
                                                hp, infer_spec)
@@ -266,7 +294,8 @@ def run_experiment(
     train_losses_np = to_numpy(train_losses)
     if store is not None:
         store.save_losses("embed_loss", train_losses_np)
-        store.save_losses("embed_valid_loss", valid_losses)
+        store.save_losses("embed_valid_loss", valid_losses if valid_curve is None
+                          else valid_curve[torch.isfinite(valid_curve)])
         store.save_losses("embed_test_loss", test_losses)
         store.save_embeddings("post", torch.cat([train_embed, valid_embed, test_embed]))
 

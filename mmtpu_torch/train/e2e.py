@@ -10,7 +10,10 @@ the reference's quirk (``simplesif.py:779-784``).  Valid/test latents are
 still fit likelihood-only by :func:`mmtpu_torch.train.latents.fit_latents`.
 
 The epochs run in permuted space as in the latent fit (sparse SGD rows, dense
-stale-momentum Adam, padded last batch).  ``hp["train_heads"] = 0`` freezes
+stale-momentum Adam or lazy Adam, padded last batch,
+:class:`mmtpu_torch.train.latents.PermutedEpoch`).  With ``valid_every`` and a
+``validation`` split the fit also returns the recursive likelihood-only
+validation curve (``simplesif.py:795-799``).  ``hp["train_heads"] = 0`` freezes
 the generator heads only while the norm keeps training (the reference's e2e
 ``freeze_weights``, ``simplesif.py:689-691``, ``models.py:170-178``).  With
 ``fused_dec_update`` the decoder weights update in kernel K2
@@ -29,14 +32,17 @@ from mmtpu_torch.models.decoder import is_stacked
 from mmtpu_torch.models.sentiment import apply_sentiment
 from mmtpu_torch.train.latents import (
     LatentFitSpec,
-    dense_adam_rows,
+    PermutedEpoch,
     epoch_permutation,
     finish_fit_decoder,
+    fit_kind,
     joint_neg_log_prob_per_sample,
-    sparse_sgd_rows,
+    make_inner_valid_spec,
     start_fit_decoder,
+    valid_curve_entry,
+    valid_fit_loss,
 )
-from mmtpu_torch.train.optim import OPT_KINDS, OptState, init_opt_state, opt_update
+from mmtpu_torch.train.optim import init_opt_state, opt_update
 from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -51,10 +57,11 @@ class E2EFitSpec:
     word_metric: str = "angular"
     shuffle: bool = True
     opt_kind: str | None = None  # "sgd" | "adam"; None: from hp["opt_code"]
-    valid_every: int = 0  # recursive validation: not ported
+    valid_every: int = 0  # recursive validation cadence (0: none)
+    valid_batch_mult: int = 8
     batch_shard_axis: str | None = None  # multi-device rows: not ported
     stacked_heads: bool = False
-    lazy_adam: bool = False  # not ported
+    lazy_adam: bool = False  # epoch-level lazy Adam; needs opt_kind "adam"
     fused_dec_update: bool = False
 
     def latent_spec(self) -> LatentFitSpec:
@@ -62,7 +69,7 @@ class E2EFitSpec:
                              train_decoder=True, unimodal=self.unimodal,
                              word_metric=self.word_metric, shuffle=self.shuffle,
                              opt_kind=self.opt_kind, stacked_heads=self.stacked_heads,
-                             fused_dec_update=self.fused_dec_update)
+                             fused_dec_update=self.fused_dec_update, lazy_adam=self.lazy_adam)
 
 
 def senti_l1(sen, lat, y, mask) -> torch.Tensor:
@@ -79,23 +86,27 @@ def senti_l1(sen, lat, y, mask) -> torch.Tensor:
 def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mapping,
             labels: torch.Tensor, vocab_emb: torch.Tensor, hp: Mapping, spec: E2EFitSpec,
             senti_mask: torch.Tensor | None = None, generator: torch.Generator | None = None,
-            perms: Sequence | None = None):
-    """The joint fit; returns ``(embed, decoder_params, senti_params, losses)``.
+            perms: Sequence | None = None, validation=None):
+    """The joint fit; returns ``(embed, decoder_params, senti_params, losses)``,
+    and ``valid_losses`` after them when ``validation = (valid_init,
+    valid_data)`` is given and ``spec.valid_every > 0`` (as
+    :func:`mmtpu_torch.train.latents.fit_latents`'s: NaN between samples, one
+    final sample appended).
 
     hp: as :func:`mmtpu_torch.train.latents.fit_latents` plus
     ``likelihood_weight`` and optionally ``train_heads``.  ``senti_mask`` is
     the per-utterance 0/1 labeled mask (None: fully supervised).  ``perms``,
     one permutation per epoch, replaces the draws from ``generator``.
     """
-    if spec.valid_every > 0:
-        raise not_ported("recursive validation (valid_every > 0)", "queue 1, validation curve")
-    if spec.lazy_adam:
-        raise not_ported("lazy Adam", "queue 1, lazy Adam")
     if spec.batch_shard_axis is not None:
         raise not_ported("batch_shard_axis", "queue 1, parallel")
     lspec = spec.latent_spec()
+    inner_spec = None
+    if validation is not None and spec.valid_every > 0:
+        inner_spec = make_inner_valid_spec(lspec, spec.valid_batch_mult)
     device = init_embed.device
-    kind = spec.opt_kind or OPT_KINDS[int(hp["opt_code"])]
+    kind = fit_kind(spec, hp)
+    lazy = spec.opt_kind == "adam" and spec.lazy_adam  # mmtpu's gate: the static kind
     n = init_embed.shape[0]
     bsz = spec.batch_size
     n_batches = -(-n // bsz)
@@ -105,6 +116,7 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     pad_idx = torch.zeros(pad, dtype=torch.long, device=device)
     lr, lw = hp["lr"], hp["likelihood_weight"]
     heads_gate = hp["train_heads"] if "train_heads" in hp else None
+    n_active = int(hp["n_epochs"])
 
     embed = init_embed.detach().to(torch.float32).clone()
     was_stacked = is_stacked(decoder_params)
@@ -118,18 +130,14 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
         dec_gates = {"heads": tree_map(lambda _: heads_gate, dec["heads"]),
                      "norm": tree_map(lambda _: 1.0, dec["norm"])}
 
-    losses = []
+    losses, curve = [], []
     for epoch in range(spec.n_epochs_max):
-        active = epoch < int(hp["n_epochs"])
+        active = epoch < n_active
         perm = epoch_permutation(epoch, n, spec, device, generator, perms)
-        idx = torch.cat([perm, pad_idx])
-        embp = embed[idx]
-        if kind == "adam":
-            e_opt = OptState(m=e_opt.m[idx], v=e_opt.v[idx], count=e_opt.count)
-        new_rows, batch_losses = [], []
+        table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
+        batch_losses = []
         for s in range(n_batches):
-            lo, hi = s * bsz, (s + 1) * bsz
-            j = idx[lo:hi]
+            j = table.idx[s * bsz:(s + 1) * bsz]
             b = {k: v[j] for k, v in data.items()}
             y = labels[j]
             mask = None if senti_mask is None else senti_mask[j]
@@ -137,13 +145,13 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
                 from mmtpu_torch.train.fused import fused_joint_step
 
                 loss, g_rows, g_sen, dec, d_opt = fused_joint_step(
-                    dec, d_opt, embp[lo:hi], b, vocab_emb, hp, lspec, valid[s], active,
+                    dec, d_opt, table.rows(s), b, vocab_emb, hp, lspec, valid[s], active,
                     heads_gate=1.0 if heads_gate is None else heads_gate, norm_gate=1.0,
                     extra_params=sen,
                     combine=lambda sp, neg, lat: lw * neg + (1.0 - lw) * senti_l1(sp, lat, y,
                                                                                   mask))
             else:
-                rows = embp[lo:hi].detach().requires_grad_()
+                rows = table.rows(s).detach().requires_grad_()
                 dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
                 sen = tree_map(lambda t: t.detach().requires_grad_(), sen)
                 neg = joint_neg_log_prob_per_sample(dec, rows, b, vocab_emb, hp, lspec, valid[s])
@@ -160,17 +168,15 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
                 dec, d_opt = opt_update(dec, g_dec, d_opt, lr, None, active, kind=kind,
                                         gates=dec_gates)
             sen, s_opt = opt_update(sen, g_sen, s_opt, lr, None, active, kind=kind)
-            with torch.no_grad():
-                if kind == "sgd":
-                    new_rows.append(sparse_sgd_rows(embp[lo:hi], g_rows, lr, active))
-                else:
-                    embp, e_opt = dense_adam_rows(embp, e_opt, lo, hi, g_rows, lr, active)
+            table.step(s, g_rows)
             batch_losses.append(loss.detach())
-        emb_out = torch.cat(new_rows) if kind == "sgd" else embp
-        inv = torch.argsort(perm)
-        embed = emb_out[:n][inv]
-        if kind == "adam":
-            e_opt = OptState(m=e_opt.m[:n][inv], v=e_opt.v[:n][inv], count=e_opt.count)
+        embed, e_opt = table.finish()
         losses.append(torch.sum(torch.stack(batch_losses)))
-    return (embed, finish_fit_decoder(dec, data, lspec, was_stacked), sen,
-            torch.stack(losses))
+        if inner_spec is not None:
+            curve.append(valid_curve_entry(epoch, spec, validation, dec, vocab_emb, hp,
+                                           inner_spec))
+    out = (embed, finish_fit_decoder(dec, data, lspec, was_stacked), sen, torch.stack(losses))
+    if inner_spec is None:
+        return out
+    curve.append(valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec))
+    return out + (torch.stack(curve),)

@@ -10,9 +10,14 @@ Each epoch runs in permuted space: the table is gathered once into the
 epoch's order, minibatch ``s`` is rows ``[s*B, (s+1)*B)`` of it, and the last
 batch is padded with index 0 and a ``row_valid`` of 0 (pad rows add nothing
 to the loss, the gradient or the batch-norm statistics).  SGD updates only a
-batch's rows; Adam is dense, so every row takes a step every step.  At the
-end of the epoch the pad rows (duplicates of row 0) are sliced off *before*
-the permutation is inverted, so a pad row never overwrites row 0's update.
+batch's rows; Adam is dense, so every row takes a step every step, unless
+``lazy_adam`` steps only the batch's rows and applies the others' steps in
+closed form (:class:`PermutedEpoch`).
+
+An epoch maps the carry of :func:`init_fit_carry` to the next; the fit runs
+every epoch, :func:`fit_latents_segment` an epoch range, so chained segments
+(the checkpointed fit, :mod:`mmtpu_torch.train.chunked`) are the same fit.  With ``valid_every`` and a ``validation`` split the fit
+also returns the recursive validation curve.
 
 The decoder may travel in the stacked layout
 (``LatentFitSpec.stacked_heads``, or ``fused_dec_update``, whose steps run
@@ -46,7 +51,16 @@ from mmtpu_torch.models.decoder import (
 from mmtpu_torch.ops.gaussian import gaussian_logpdf_masked, gaussian_logpdf_suffstats
 from mmtpu_torch.ops.joint import weighted_joint
 from mmtpu_torch.ops.wordprob import word_logprob_angular, word_logprob_dot_prod
-from mmtpu_torch.train.optim import OPT_KINDS, OptState, init_opt_state, opt_update
+from mmtpu_torch.train.optim import (
+    OPT_KINDS,
+    OptState,
+    init_opt_state,
+    lazy_adam_catch_up,
+    lazy_adam_coeffs,
+    lazy_adam_epilogue,
+    lazy_adam_touch,
+    opt_update,
+)
 from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -68,6 +82,12 @@ class LatentFitSpec:
     # stacked, and each training step's decoder-weight update runs in the
     # fused kernel K2 (mmtpu_torch.train.fused); needs a static opt_kind
     fused_dec_update: bool = False
+    # recursive validation every valid_every epochs (0: none), at
+    # valid_batch_mult times the batch (simplesif.py:146-159, 458)
+    valid_every: int = 0
+    valid_batch_mult: int = 8
+    # epoch-level lazy Adam (mmtpu_torch.train.optim); needs opt_kind "adam"
+    lazy_adam: bool = False
 
 
 def _word_logprob(spec: LatentFitSpec, latents, vocab_emb, b):
@@ -200,38 +220,101 @@ def epoch_permutation(epoch: int, n: int, spec, device, generator=None,
     return torch.arange(n, device=device)
 
 
-def sparse_sgd_rows(rows, g_rows, lr, active):
-    """The SGD step of one batch's rows (the rows of no other batch move)."""
-    return rows.detach() - lr * g_rows if active else rows.detach()
+class PermutedEpoch:
+    """The embedding table and its optimizer state through one epoch in
+    permuted space: :meth:`rows` is block ``s`` as its step sees it,
+    :meth:`step` applies the optimizer to the block, :meth:`finish` returns
+    the table and state in row order.
 
-
-def dense_adam_rows(embp, e_opt, lo, hi, g_rows, lr, active):
-    """The dense Adam step of the permuted table: every row moves, the
-    batch's rows with their gradient and the others by stale momentum."""
-    g_full = torch.zeros_like(embp)
-    g_full[lo:hi] = g_rows
-    return opt_update(embp, g_full, e_opt, lr, None, active, kind="adam")
-
-
-def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_emb: torch.Tensor,
-                hp: Mapping, spec: LatentFitSpec, generator: torch.Generator | None = None,
-                perms: Sequence | None = None):
-    """Run the full latent fit; returns ``(embed, decoder_params, losses)``.
-
-    ``losses`` is ``(n_epochs_max,)``: per-epoch sums of batch means.  Epochs
-    at or past ``hp["n_epochs"]`` change nothing.
-
-    hp: ``lr`` and ``word_loss_weight`` (floats or 0-d float32 tensors),
-    ``norm_code`` (int or 0-d tensor), ``opt_code`` and ``n_epochs`` (ints).
-
-    Shuffling (``spec.shuffle``) draws one permutation per epoch from
-    ``generator``; ``perms``, one permutation per epoch, replaces the draws
-    (the tests feed in what JAX drew).
+    The laws are mmtpu's: sparse SGD moves only the block's rows; dense Adam
+    moves every row every step (stale momentum); lazy Adam steps only the
+    block, with its zero-gradient steps in closed form (caught up before the
+    forward, the rest in one epilogue), and drops an inactive epoch whole at
+    the end instead of gating each step.
     """
-    device = init_embed.device
-    kind = spec.opt_kind or OPT_KINDS[int(hp["opt_code"])]
+
+    def __init__(self, embed, e_opt: OptState, perm, pad_idx, bsz: int, kind: str, lazy: bool,
+                 lr, active: bool):
+        self.idx = torch.cat([perm, pad_idx])
+        self.perm, self.bsz, self.kind, self.lazy, self.lr, self.active = (
+            perm, bsz, kind, lazy, lr, active)
+        self.n_batches = self.idx.numel() // bsz
+        self.before = (embed, e_opt)
+        self.embp = embed[self.idx]
+        self.e_opt = e_opt
+        if kind == "adam":
+            self.e_opt = OptState(m=e_opt.m[self.idx], v=e_opt.v[self.idx], count=e_opt.count)
+        self.coeffs = lazy_adam_coeffs(e_opt.count, self.n_batches, lr) if lazy else None
+        self.stepped = []  # sparse SGD: each block's rows; lazy Adam: each block's (p, m, v)
+        self._caught_up = None
+
+    def rows(self, s: int) -> torch.Tensor:
+        lo, hi = s * self.bsz, (s + 1) * self.bsz
+        if self.lazy:
+            self._caught_up = lazy_adam_catch_up(self.embp[lo:hi], self.e_opt.m[lo:hi],
+                                                 self.e_opt.v[lo:hi], s, self.coeffs)
+            return self._caught_up[0]
+        return self.embp[lo:hi]
+
+    @torch.no_grad()
+    def step(self, s: int, g_rows: torch.Tensor) -> None:
+        lo, hi = s * self.bsz, (s + 1) * self.bsz
+        if self.kind == "sgd":
+            rows = self.embp[lo:hi]
+            self.stepped.append(rows - self.lr * g_rows if self.active else rows)
+        elif self.lazy:
+            p, m, v = self._caught_up
+            self.stepped.append(lazy_adam_touch(p, m, v, g_rows, s, self.lr, self.coeffs))
+        else:
+            g_full = torch.zeros_like(self.embp)
+            g_full[lo:hi] = g_rows
+            self.embp, self.e_opt = opt_update(self.embp, g_full, self.e_opt, self.lr, None,
+                                               self.active, kind="adam")
+
+    def finish(self) -> tuple:
+        """``(embed, e_opt)`` after the epoch.  The pad rows (duplicates of
+        row 0) are sliced off before the permutation is inverted, so a pad
+        row never overwrites row 0's update."""
+        inv = torch.argsort(self.perm)
+        unperm = lambda t: t[:self.perm.numel()][inv]
+        if self.kind == "sgd":
+            return unperm(torch.cat(self.stepped)), self.e_opt
+        if self.lazy:
+            if not self.active:
+                return self.before
+            p, m, v = lazy_adam_epilogue(*(torch.cat(t) for t in zip(*self.stepped)),
+                                         self.n_batches, self.bsz, self.lr, self.coeffs)
+            return unperm(p), OptState(m=unperm(m), v=unperm(v),
+                                       count=self.e_opt.count + self.n_batches)
+        return unperm(self.embp), OptState(m=unperm(self.e_opt.m), v=unperm(self.e_opt.v),
+                                           count=self.e_opt.count)
+
+
+def fit_kind(spec, hp) -> str:
+    """The optimizer law of a fit: the spec's static kind, else ``hp["opt_code"]``'s."""
+    return spec.opt_kind or OPT_KINDS[int(hp["opt_code"])]
+
+
+def init_fit_carry(init_embed: torch.Tensor, decoder_params, spec: LatentFitSpec, hp) -> tuple:
+    """The state a latent fit carries from epoch to epoch: ``(embed, decoder,
+    embed_opt_state, dec_opt_state)``, the decoder in the fit's layout
+    (:func:`start_fit_decoder`).  Chained :func:`fit_latents_segment` calls
+    from it are :func:`fit_latents`; :mod:`mmtpu_torch.train.chunked`
+    checkpoints it between them."""
+    kind = fit_kind(spec, hp)
+    embed = init_embed.detach().to(torch.float32).clone()
+    dec = start_fit_decoder(decoder_params, spec)
+    d_opt = init_opt_state(dec, kind) if spec.train_decoder else None
+    return embed, dec, init_opt_state(embed, kind), d_opt
+
+
+def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: int, device,
+                generator, perms):
+    """One epoch of a latent fit, ``epoch(carry, epoch_idx) -> (carry, loss)``."""
+    kind = fit_kind(spec, hp)
     fused = spec.train_decoder and spec.fused_dec_update
-    n, _ = init_embed.shape
+    # mmtpu's gate: the static kind, so opt_kind=None runs dense Adam
+    lazy = spec.opt_kind == "adam" and spec.lazy_adam
     bsz = spec.batch_size
     n_batches = -(-n // bsz)
     pad = n_batches * bsz - n
@@ -239,38 +322,30 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     valid = valid.reshape(n_batches, bsz)
     pad_idx = torch.zeros(pad, dtype=torch.long, device=device)
     lr = hp["lr"]
-
+    n_active = int(hp["n_epochs"])
     # hp["train_dec"] = 0 freezes the WHOLE decoder, norm included
     # (simplesif.py:55-56): the non-e2e freeze semantics
     dec_gate = hp["train_dec"] if "train_dec" in hp else None
 
-    embed = init_embed.detach().to(torch.float32).clone()
-    was_stacked = is_stacked(decoder_params)
-    dec = start_fit_decoder(decoder_params, spec)
-    e_opt = init_opt_state(embed, kind)
-    d_opt = init_opt_state(dec, kind) if spec.train_decoder else None
-    dec_gates = None if dec_gate is None else tree_map(lambda _: dec_gate, dec)
-    losses = []
-    for epoch in range(spec.n_epochs_max):
-        active = epoch < int(hp["n_epochs"])
-        perm = epoch_permutation(epoch, n, spec, device, generator, perms)
-        idx = torch.cat([perm, pad_idx])
-        embp = embed[idx]
-        if kind == "adam":
-            e_opt = OptState(m=e_opt.m[idx], v=e_opt.v[idx], count=e_opt.count)
-        new_rows, batch_losses = [], []
+    def epoch(carry, epoch_idx: int):
+        embed, dec, e_opt, d_opt = carry
+        active = epoch_idx < n_active
+        perm = epoch_permutation(epoch_idx, n, spec, device, generator, perms)
+        table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
+        dec_gates = None if dec_gate is None else tree_map(lambda _: dec_gate, dec)
+        batch_losses = []
         for s in range(n_batches):
             lo, hi = s * bsz, (s + 1) * bsz
-            b = {k: v[idx[lo:hi]] for k, v in data.items()}
+            b = {k: v[table.idx[lo:hi]] for k, v in data.items()}
             if fused:
                 from mmtpu_torch.train.fused import fused_joint_step
 
                 gate = 1.0 if dec_gate is None else dec_gate
                 loss, g_rows, _, dec, d_opt = fused_joint_step(
-                    dec, d_opt, embp[lo:hi], b, vocab_emb, hp, spec, valid[s], active,
+                    dec, d_opt, table.rows(s), b, vocab_emb, hp, spec, valid[s], active,
                     heads_gate=gate, norm_gate=gate)
             else:
-                rows = embp[lo:hi].detach().requires_grad_()
+                rows = table.rows(s).detach().requires_grad_()
                 if spec.train_decoder:
                     dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
                 loss = batch_neg_log_prob(rows, dec, b, vocab_emb, hp, spec, valid[s])
@@ -281,16 +356,97 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
                     dec = tree_map(torch.Tensor.detach, dec)
                     dec, d_opt = opt_update(dec, tree_unflatten(dec, grads[1:]), d_opt, lr,
                                             None, active, kind=kind, gates=dec_gates)
-            with torch.no_grad():
-                if kind == "sgd":
-                    new_rows.append(sparse_sgd_rows(embp[lo:hi], g_rows, lr, active))
-                else:
-                    embp, e_opt = dense_adam_rows(embp, e_opt, lo, hi, g_rows, lr, active)
+            table.step(s, g_rows)
             batch_losses.append(loss.detach())
-        emb_out = torch.cat(new_rows) if kind == "sgd" else embp
-        inv = torch.argsort(perm)
-        embed = emb_out[:n][inv]
-        if kind == "adam":
-            e_opt = OptState(m=e_opt.m[:n][inv], v=e_opt.v[:n][inv], count=e_opt.count)
-        losses.append(torch.sum(torch.stack(batch_losses)))
-    return embed, finish_fit_decoder(dec, data, spec, was_stacked), torch.stack(losses)
+        embed, e_opt = table.finish()
+        return (embed, dec, e_opt, d_opt), torch.sum(torch.stack(batch_losses))
+
+    return epoch
+
+
+def fit_latents_segment(carry: tuple, data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec,
+                        epoch_start: int, n_seg: int, generator: torch.Generator | None = None,
+                        perms: Sequence | None = None):
+    """Epochs ``[epoch_start, epoch_start + n_seg)`` of a latent fit from
+    ``carry`` (:func:`init_fit_carry`); returns ``(carry, losses)`` with
+    ``losses`` ``(n_seg,)``.  ``perms`` holds every epoch of the fit (indexed
+    by epoch); ``generator`` must be in the state that the uninterrupted fit
+    reaches at ``epoch_start``."""
+    epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[0], carry[0].device,
+                        generator, perms)
+    losses = []
+    for e in range(epoch_start, epoch_start + n_seg):
+        carry, loss = epoch(carry, e)
+        losses.append(loss)
+    return carry, torch.stack(losses)
+
+
+def make_inner_valid_spec(spec, valid_batch_mult: int) -> LatentFitSpec:
+    """The recursive validation refit's spec: decoder frozen, unshuffled,
+    ``valid_batch_mult`` times the batch (simplesif.py:146-159, 458), no
+    nested validation.  Shared by the latent and e2e fits."""
+    return dataclasses.replace(spec, train_decoder=False, shuffle=False,
+                               batch_size=spec.batch_size * valid_batch_mult, valid_every=0)
+
+
+def valid_fit_loss(validation, dec, vocab_emb, hp: Mapping, inner_spec) -> torch.Tensor:
+    """One validation sample: the valid split refit from its SIF init against
+    the frozen decoder ``dec``; the loss of its last active epoch."""
+    v_init, v_data = validation
+    _, _, v_losses = fit_latents(v_init, dec, v_data, vocab_emb, hp, inner_spec)
+    return v_losses[min(max(int(hp["n_epochs"]) - 1, 0), inner_spec.n_epochs_max - 1)]
+
+
+def valid_curve_entry(epoch: int, spec, validation, dec, vocab_emb, hp: Mapping,
+                      inner_spec) -> torch.Tensor:
+    """The curve at ``epoch``: a sample on active epochs at the cadence, else
+    NaN (mmtpu's code; its docstring says the last value repeats)."""
+    if epoch < int(hp["n_epochs"]) and epoch % spec.valid_every == 0:
+        return valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec)
+    return torch.full((), float("nan"), device=validation[0].device)
+
+
+def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_emb: torch.Tensor,
+                hp: Mapping, spec: LatentFitSpec, generator: torch.Generator | None = None,
+                perms: Sequence | None = None, validation=None):
+    """Run the full latent fit; returns ``(embed, decoder_params, losses)``,
+    and ``valid_losses`` after them when ``validation`` is given and
+    ``spec.valid_every > 0``.
+
+    ``losses`` is ``(n_epochs_max,)``: per-epoch sums of batch means.  Epochs
+    at or past ``hp["n_epochs"]`` change nothing.
+
+    hp: ``lr`` and ``word_loss_weight`` (floats or 0-d float32 tensors),
+    ``norm_code`` (int or 0-d tensor), ``opt_code`` and ``n_epochs`` (ints).
+
+    Shuffling (``spec.shuffle``) draws one permutation per epoch from
+    ``generator``; ``perms``, one permutation per epoch, replaces the draws
+    (the tests feed in what JAX drew).
+
+    ``validation = (valid_init_embed, valid_data)``: the valid split is refit
+    from its SIF init against the current decoder (frozen, unshuffled, batch
+    x ``valid_batch_mult``) after every active epoch with
+    ``epoch % valid_every == 0`` and once after the last epoch, the
+    reference's recursive validation (``simplesif.py:146-159``).
+    ``valid_losses`` is ``(n_epochs_max + 1,)``: each refit's last-epoch
+    loss, NaN between samples, the final sample last.
+    """
+    was_stacked = is_stacked(decoder_params)
+    inner_spec = None
+    if validation is not None and spec.valid_every > 0:
+        inner_spec = make_inner_valid_spec(spec, spec.valid_batch_mult)
+    carry = init_fit_carry(init_embed, decoder_params, spec, hp)
+    epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[0], carry[0].device,
+                        generator, perms)
+    losses, curve = [], []
+    for e in range(spec.n_epochs_max):
+        carry, loss = epoch(carry, e)
+        losses.append(loss)
+        if inner_spec is not None:
+            curve.append(valid_curve_entry(e, spec, validation, carry[1], vocab_emb, hp,
+                                           inner_spec))
+    out = carry[0], finish_fit_decoder(carry[1], data, spec, was_stacked), torch.stack(losses)
+    if inner_spec is None:
+        return out
+    curve.append(valid_fit_loss(validation, carry[1], vocab_emb, hp, inner_spec))
+    return out + (torch.stack(curve),)

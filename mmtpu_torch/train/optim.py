@@ -6,7 +6,17 @@ the sqrt, bias corrections by ``pow`` of the step count; SGD is ``p -= lr*g``
 with no moment buffers.  ``active=False`` makes a step a no-op.  A dense Adam
 step over a table moves every row, including rows whose gradient is zero
 (torch-Adam's "stale momentum").  Per-leaf ``gates`` freeze single leaves
-(parameter and moments).  Lazy Adam is not ported yet.
+(parameter and moments).
+
+Epoch-level lazy Adam (mmtpu's sweep default, ``LatentFitSpec.lazy_adam``):
+in a permuted epoch each latent row is in exactly one minibatch, and every
+other step of the epoch moves it by stale momentum alone.  Those zero-gradient
+steps have a closed form in the row's moments, so the fits step only the
+batch's rows: :func:`lazy_adam_catch_up` applies a block's ``s`` pending
+steps before its forward, :func:`lazy_adam_touch` its real step, and
+:func:`lazy_adam_epilogue`, once per epoch, every block's remaining steps.
+The values are dense Adam's up to float rounding (``beta**k`` by ``pow``, a
+summed subtraction in place of ``k`` separate ones).
 """
 
 from __future__ import annotations
@@ -105,3 +115,66 @@ def opt_update(params, grads, state: OptState, lr, opt_code, active=True,
     out = tree_map(leaf, params, grads, state.m, state.v, gates)
     pick = lambda i: tree_map(lambda t: t[i], out) if isinstance(out, dict) else out[i]
     return pick(0), OptState(m=pick(1), v=pick(2), count=new_count)
+
+
+def lazy_adam_coeffs(count0: torch.Tensor, n_steps: int, lr):
+    """Per-epoch coefficients of the lazy-Adam closed forms, each ``(n_steps,)``
+    (entry ``j-1`` is epoch step ``j``, global step ``count0 + j``):
+    ``(A1, A2, bc1, bc2)`` with ``A1 = lr * beta1**j / bc1`` and
+    ``A2 = beta2**j / bc2``, so that the zero-gradient step ``j`` moves a
+    parameter by ``A1 * m0 / (sqrt(A2 * v0) + eps)``.  Powers and bias
+    corrections in float32 on ``count0``'s device, as mmtpu's."""
+    j = torch.arange(1, n_steps + 1, dtype=torch.float32, device=count0.device)
+    t = count0.to(torch.float32) + j
+    bc1 = 1.0 - torch.pow(_B1, t)
+    bc2 = 1.0 - torch.pow(_B2, t)
+    return lr * torch.pow(_B1, j) / bc1, torch.pow(_B2, j) / bc2, bc1, bc2
+
+
+@torch.no_grad()
+def lazy_adam_catch_up(p0, m0, v0, s: int, coeffs):
+    """A block's state after its ``s`` pending zero-gradient steps of the
+    epoch (``s = 0``: unchanged)."""
+    if s == 0:
+        return p0, m0, v0
+    a1, a2 = coeffs[0][:s, None, None], coeffs[1][:s, None, None]
+    p_s = p0 - torch.sum(a1 * m0 / (torch.sqrt(a2 * v0) + _EPS), dim=0)
+    sf = torch.tensor(float(s), device=p0.device)
+    return p_s, torch.pow(_B1, sf) * m0, torch.pow(_B2, sf) * v0
+
+
+@torch.no_grad()
+def lazy_adam_touch(p_s, m_s, v_s, g, s: int, lr, coeffs):
+    """The block's real Adam step at epoch step index ``s`` (0-based; global
+    step ``count0 + s + 1``), :func:`opt_update`'s law."""
+    bc1, bc2 = coeffs[2][s], coeffs[3][s]
+    m2 = _B1 * m_s + (1.0 - _B1) * g
+    v2 = _B2 * v_s + (1.0 - _B2) * torch.square(g)
+    return p_s - lr * (m2 / bc1) / (torch.sqrt(v2 / bc2) + _EPS), m2, v2
+
+
+@torch.no_grad()
+def lazy_adam_epilogue(p, m, v, n_steps: int, bsz: int, lr, coeffs):
+    """Every block's remaining ``S-1-s`` zero-gradient steps, once per epoch.
+
+    ``p, m, v`` are the permuted ``(S*B, D)`` tables after the epoch's steps:
+    block ``s`` (rows ``[s*B, (s+1)*B)``) holds its just-stepped state.  The
+    ``K = S-1`` decay offsets are added one ``(S, B, D)`` pass at a time
+    (offset ``k`` reaches blocks ``s < S-k``), so nothing ``K``-sized is
+    materialised at table scale."""
+    S, B = n_steps, bsz
+    if S <= 1:
+        return p, m, v
+    bc1, bc2 = coeffs[2], coeffs[3]
+    D = p.shape[-1]
+    mb, vb = m.reshape(S, B, D), v.reshape(S, B, D)
+    k = torch.arange(1, S, dtype=torch.float32, device=p.device)
+    b1k, b2k = torch.pow(_B1, k), torch.pow(_B2, k)
+    delta = torch.zeros_like(mb)
+    for i in range(1, S):  # offset k = i: block s's step s + i, for s < S - i
+        c1 = (lr * b1k[i - 1] / bc1[i:])[:, None, None]
+        c2 = (b2k[i - 1] / bc2[i:])[:, None, None]
+        delta[:S - i] += c1 * mb[:S - i] / (torch.sqrt(c2 * vb[:S - i]) + _EPS)
+    rest = torch.arange(S - 1, -1, -1, dtype=torch.float32, device=p.device)[:, None, None]
+    return (p - delta.reshape(S * B, D), (torch.pow(_B1, rest) * mb).reshape(S * B, D),
+            (torch.pow(_B2, rest) * vb).reshape(S * B, D))

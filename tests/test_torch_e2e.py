@@ -31,7 +31,7 @@ from mmtpu_torch import runner as trunner
 from mmtpu_torch.convert import to_numpy, to_torch
 from mmtpu_torch.train import e2e as te2e
 from mmtpu_torch.train import latents as tl
-from tests.test_torch_runner import JaxDraws, _cfg_file, _predict, _tiny_prep
+from tests.test_torch_runner import JaxDraws, _cfg_file, _perms, _predict, _tiny_prep
 
 
 def test_grid_matches_mmtpu(tmp_path):
@@ -93,7 +93,12 @@ def test_load_dataset_fallback_matches_mmtpu(tmp_path):
                       jdata.prepare_device_data(want, pos_embed_dim=2))
 
 
-def _e2e_both(rng, kind, fused, hp_extra=None, n_epochs=3):
+def _e2e_both(rng, kind, fused, hp_extra=None, n_epochs=3, n_epochs_max=None,
+              spec_extra=None):
+    """mmtpu's fit_e2e and the port's on the same inputs and draws.
+    ``spec_extra`` with ``valid_every`` also passes the valid split (and
+    builds JAX's validation-curve key chain for the permutations)."""
+    n_epochs_max = n_epochs_max or n_epochs
     ds = jdata.synthesize_dataset("mosi", n_train=22, n_valid=6, n_test=6, vocab_size=60,
                                   embed_dim=16, audio_dim=7, visual_dim=5, seq_len=6,
                                   seed=int(rng.integers(1e6)))
@@ -110,22 +115,27 @@ def _e2e_both(rng, kind, fused, hp_extra=None, n_epochs=3):
     j_hp = {k: jnp.asarray(v, jnp.int32 if isinstance(v, int) else jnp.float32)
             for k, v in hp.items()}
     t_hp = {k: (v if isinstance(v, int) else torch.tensor(v)) for k, v in hp.items()}
-    args = dict(n_epochs_max=n_epochs, batch_size=8, unimodal=False, opt_kind=kind,
-                fused_dec_update=fused)
+    args = dict(n_epochs_max=n_epochs_max, batch_size=8, unimodal=False, opt_kind=kind,
+                fused_dec_update=fused, **(spec_extra or {}))
+    curve = args.get("valid_every", 0) > 0
+    j_valid = t_valid = None
+    if curve:
+        j_valid = (jnp.asarray(prep.sif_init["valid"]),
+                   {k: jnp.asarray(v) for k, v in prep.splits["valid"].items()})
+        t_valid = (torch.tensor(prep.sif_init["valid"]),
+                   tl.train_view(to_torch(prep.splits["valid"])))
     key = jax.random.key(0)
     data = {k: jnp.asarray(v) for k, v in prep.splits["train"].items()}
     want = jax.jit(lambda: je2e.fit_e2e(
         key, jnp.asarray(prep.sif_init["train"]), dec, sen, data, jnp.asarray(labels),
         jnp.asarray(prep.vocab_embeddings), j_hp, je2e.E2EFitSpec(**args),
-        senti_mask=jnp.asarray(smask)))()
-    perms = []
-    for _ in range(n_epochs):
-        key, sub = jax.random.split(key)
-        perms.append(np.array(jax.random.permutation(sub, n)))
+        senti_mask=jnp.asarray(smask), validation=j_valid))()
     got = te2e.fit_e2e(torch.tensor(prep.sif_init["train"]), to_torch(dec), to_torch(sen),
                        tl.train_view(to_torch(prep.splits["train"])), torch.tensor(labels),
                        torch.tensor(prep.vocab_embeddings), t_hp, te2e.E2EFitSpec(**args),
-                       senti_mask=torch.tensor(smask), perms=perms)
+                       senti_mask=torch.tensor(smask),
+                       perms=_perms(key, n, n_epochs_max, validation_curve=curve),
+                       validation=t_valid)
     return dec, want, got
 
 
@@ -157,8 +167,7 @@ def test_fit_e2e_train_heads_gate(rng, fused):
     assert not np.array_equal(got[1]["norm"]["scale"].numpy(), np.asarray(dec["norm"]["scale"]))
 
 
-@pytest.mark.parametrize("kw", [{"valid_every": 80}, {"lazy_adam": True},
-                                {"batch_shard_axis": "data"}])
+@pytest.mark.parametrize("kw", [{"batch_shard_axis": "data"}])
 def test_fit_e2e_unported_options_raise(kw):
     spec = te2e.E2EFitSpec(n_epochs_max=1, batch_size=4, unimodal=False, opt_kind="sgd", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

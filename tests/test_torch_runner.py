@@ -41,20 +41,26 @@ def _tiny_prep(dataset="mosi"):
     return prepare_device_data(ds, pos_embed_dim=2, pos_mode="baked")
 
 
-def _perms(key, n, n_epochs):
+def _perms(key, n, n_epochs, validation_curve=False):
+    """The permutations a JAX fit draws from ``key``; under the validation
+    curve each epoch splits the key once more (mmtpu/train/latents.py:696)."""
     out = []
     for _ in range(n_epochs):
         key, sub = jax.random.split(key)
         out.append(np.array(jax.random.permutation(sub, n)))
+        if validation_curve:
+            key, _ = jax.random.split(key)
     return out
 
 
 class JaxDraws:
     """The draws of ``mmtpu.runner.run_experiment`` from its JAX key splits
     (runner.py:220-221; the e2e sentiment init at runner.py:246-248; the
-    sentiment split at train/sentiment.py:103-104)."""
+    sentiment split at train/sentiment.py:103-104); ``validation_curve``
+    as the run's flag."""
 
-    def __init__(self, seed):
+    def __init__(self, seed, validation_curve=False):
+        self.validation_curve = validation_curve
         k_dec, k_e2e, k_fit, _, _, k_sent = jax.random.split(jax.random.key(seed), 6)
         self.k_dec, self.k_e2e, self.k_fit = k_dec, k_e2e, k_fit
         self.k_sinit, self.k_sfit = jax.random.split(k_sent)
@@ -67,7 +73,7 @@ class JaxDraws:
         return to_torch(j_init_sentiment(self.k_e2e, embed_dim, hidden_dim, n_out))
 
     def train_permutations(self, n, n_epochs):
-        return _perms(self.k_fit, n, n_epochs)
+        return _perms(self.k_fit, n, n_epochs, self.validation_curve)
 
     def init_sentiment(self, embed_dim, hidden_dim, n_out):
         return to_torch(j_init_sentiment(self.k_sinit, embed_dim, hidden_dim, n_out))
@@ -158,8 +164,7 @@ def test_divergence_is_recorded(tmp_path):
     assert (tmp_path / "div" / "config_0_run_0" / "post" / "test_results_after.json").is_file()
 
 
-@pytest.mark.parametrize("kw", [{"time_test": True}, {"validation_curve": True},
-                                {"mesh": object()}, {"resume_dir": "x"}, {"lazy_adam": True}])
+@pytest.mark.parametrize("kw", [{"time_test": True}, {"mesh": object()}])
 def test_unported_options_raise(kw):
     cfg = ExperimentConfig(dataset="mosi", e2e=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -187,7 +192,7 @@ def test_cli_main_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--device", "cuda", "--e2e", "n"], RuntimeError),
-    (["--device", "cpu", "--validation_curve"], NotImplementedError),
+    (["--device", "cpu", "--mesh"], NotImplementedError),
     (["--device", "cpu", "--e2e", "n", "--profile"], NotImplementedError),
 ])
 def test_cli_refuses(tmp_path, monkeypatch, argv, exc):
