@@ -45,10 +45,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    the end; K1 launched for the two refits of the valid split on top of
    phase 4's count), and the Adam training fit checkpointed one epoch per
    segment, killed after its first save, resumed from epoch 1 and held to
-   the uninterrupted fit bit for bit.
+   the uninterrupted fit bit for bit;
+10. one sweep chunk, ``mmtpu_torch.sweep.run_chunk``: the first 32 configs
+   of the grid's Adam / 100-epoch bucket trained as one program with a
+   leading config axis (lazy Adam, the sweep's default) at full MOSI width,
+   epochs cut to 2 and sentiment epochs to 10; K1 launched once per step for
+   the whole chunk (48 of each kind, at 2048 rows in training and 16384 in
+   inference); K1 against its plain versions at those row counts (phase 2's
+   gates, with times and bounds); four of the configs (each norm at lr 1e-4
+   and 1e-3) run alone through the single-config fits with the same draws
+   and held to the chunk's results (embeddings at lr 1e-4 only: see the
+   phase's code); diverged configs reported, the others finite; the phases'
+   wall seconds, the training rate and the peak memory printed.
 
-Phases 8 and 9 run inside the temporary directory of phases 4-6, before
-phase 7.  Around each path of phases 4-6, 8 and 9 the kernel launch counts
+Phases 8, 9 and 10 run inside the temporary directory of phases 4-6, before
+phase 7.  Around each path of phases 4-6 and 8-10 the kernel launch counts
 are set to 0 just before and read just after.  The line before the last is
 the kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the rest of the repository beside it, the script exits
@@ -95,6 +106,11 @@ LAZY_LOSS_RTOL, LAZY_EMB_ATOL = 2e-3, 1e-5
 # kernel of the fit adds in a fixed order (K1, K2 and cuBLAS on one stream),
 # the checkpoint holds float32 exactly, and autograd reaches no index backward
 RESUME_RTOL, RESUME_ATOL = 0.0, 0.0
+# phase 10: the sweep chunk, cut in depth only (the grid says 100 epochs and
+# 400 sentiment epochs), and its tolerance against the configs run alone:
+# the CPU parity tests' (loss rtol, embeddings and predictions atol)
+SWEEP_K, SWEEP_EPOCHS, SWEEP_SENTIMENT_EPOCHS = 32, 2, 10
+SWEEP_RTOL, SWEEP_ATOL = 2e-4, 2e-4
 
 
 def log(msg: str) -> None:
@@ -144,78 +160,97 @@ def bound_ms(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _k1_case(torch, dev, gen, b, d, v, zero_row=False) -> tuple:
+    """K1's inputs at one shape: normal latents (row 0 zero with
+    ``zero_row``), a unit-norm vocabulary, a normal cotangent."""
+    lat = torch.randn(b, d, generator=gen)
+    if zero_row:
+        lat[0] = 0.0
+    voc = torch.randn(v, d, generator=gen)
+    voc = voc / torch.linalg.vector_norm(voc, dim=-1, keepdim=True)
+    g = torch.randn(b, 1, generator=gen)
+    return lat.to(dev), voc.to(dev), g.to(dev)
+
+
+def _check_k1(torch, K, lat, voc, g, zero_row=False) -> tuple:
+    """K1's forward and backward at one shape against the plain versions at
+    the TPU kernel's gates, each called twice and required bit for bit
+    equal; returns the largest absolute errors ``(fwd, bwd)``."""
+    b, d = lat.shape
+    v = voc.shape[0]
+    vnorm = torch.linalg.vector_norm(voc, dim=-1)
+    z_k = K.angular_fwd(lat, voc, vnorm)
+    z_p = K.angular_partition_ref(lat, voc)
+    dl_k = K.angular_bwd(lat, voc, vnorm, g)
+    # partials are added in a fixed order (no atomics): a second call is bit for bit equal
+    same_fwd = torch.equal(z_k, K.angular_fwd(lat, voc, vnorm))
+    same = torch.equal(dl_k, K.angular_bwd(lat, voc, vnorm, g))
+    dl_f = K.angular_partition_bwd_ref(lat, voc, vnorm, g)
+    lat_p = lat.clone().requires_grad_()
+    (K.angular_partition_ref(lat_p, voc) * g).sum().backward()
+    dl_a = lat_p.grad
+    torch.cuda.synchronize()
+
+    sum_rel = abs(z_k.sum().item() - z_p.sum().item()) / abs(z_p.sum().item())
+    elem_rel = ((z_k - z_p).abs() / z_p.abs()).max().item()
+    grad_rel = ((dl_k - dl_a).abs().max() / dl_a.abs().max()).item()
+    # the zero row's gradient is ~1e8 (it divides by the 1e-8 clamp), so it
+    # is held to the max-rel limit only; the other rows to atol 1e-5
+    rows = slice(1, None) if zero_row else slice(None)
+    grad_abs = (dl_k[rows] - dl_f[rows]).abs().max().item()
+    log(f"[k1] B={b} D={d} V={v} zero_row={zero_row}: fwd sum rel {sum_rel:.3e}, "
+        f"elem rel {elem_rel:.3e}; grad max-rel vs autograd {grad_rel:.3e}, "
+        f"abs vs bwd_ref {grad_abs:.3e}; repeat bit-equal fwd {same_fwd} bwd {same}")
+    if not (sum_rel < FWD_SUM_REL and elem_rel < FWD_RTOL):
+        raise AssertionError(f"K1 forward disagrees at {(b, d, v, zero_row)}")
+    if not (grad_rel < GRAD_MAX_REL and grad_abs < GRAD_ATOL):
+        raise AssertionError(f"K1 backward disagrees at {(b, d, v, zero_row)}")
+    if not same_fwd:
+        raise AssertionError(f"K1 forward differs between two calls at {(b, d, v, zero_row)}")
+    if not same:
+        raise AssertionError(f"K1 backward differs between two calls at {(b, d, v, zero_row)}")
+    return (z_k - z_p).abs().max().item(), grad_abs
+
+
+def _k1_times(torch, K, lat, voc, g, single_calls: bool = True, reps: int = 100) -> dict:
+    """Device ms per call of both kernels and both plain versions at one
+    shape (queued bursts); with ``single_calls``, the median of single calls
+    is printed too."""
+    b = lat.shape[0]
+    vnorm = torch.linalg.vector_norm(voc, dim=-1)
+    fns = {"fwd": lambda: K.angular_fwd(lat, voc, vnorm),
+           "fwd_plain": lambda: K.angular_partition_ref(lat, voc),
+           "bwd": lambda: K.angular_bwd(lat, voc, vnorm, g),
+           "bwd_plain": lambda: K.angular_partition_bwd_ref(lat, voc, vnorm, g)}
+    times = {k: _device_ms(torch, f, reps=reps) for k, f in fns.items()}
+    printed = [("device", times)]
+    if single_calls:
+        printed.append(("one call", {k: _call_ms(torch, f) for k, f in fns.items()}))
+    for kind, t in printed:
+        log(f"[k1] B={b} {kind} ms: fwd kernel {t['fwd']:.4f} plain {t['fwd_plain']:.4f}; "
+            f"bwd kernel {t['bwd']:.4f} plain {t['bwd_plain']:.4f}")
+    return times
+
+
+def _k1_bounds(b: int, d: int = 300, v: int = 3016) -> dict:
+    """K1's bounds at ``b`` rows: each input read once, each output written once."""
+    fwd_bytes = 4 * (b * d + v * d + v + b)
+    bounds = {"fwd": bound_ms(2 * b * v * d, fwd_bytes),
+              "bwd": bound_ms(4 * b * v * d, fwd_bytes + 4 * b * d)}
+    log(f"[k1] bound at B={b}: fwd {bounds['fwd'][0]:.5f} ms ({bounds['fwd'][1]}), "
+        f"bwd {bounds['bwd'][0]:.5f} ms ({bounds['bwd'][1]})")
+    return bounds
+
+
 def check_kernels(torch, K, dev) -> dict:
     """Phase 2: K1 forward/backward vs the plain versions; returns errors and times."""
     gen = torch.Generator().manual_seed(0)
     fwd_err = bwd_err = 0.0
     for b, d, v, zero_row in SHAPES:
-        lat = torch.randn(b, d, generator=gen)
-        if zero_row:
-            lat[0] = 0.0
-        voc = torch.randn(v, d, generator=gen)
-        voc = voc / torch.linalg.vector_norm(voc, dim=-1, keepdim=True)
-        g = torch.randn(b, 1, generator=gen)
-        lat, voc, g = lat.to(dev), voc.to(dev), g.to(dev)
-        vnorm = torch.linalg.vector_norm(voc, dim=-1)
-
-        z_k = K.angular_fwd(lat, voc, vnorm)
-        z_p = K.angular_partition_ref(lat, voc)
-        dl_k = K.angular_bwd(lat, voc, vnorm, g)
-        # partials are added in a fixed order (no atomics): a second call is bit for bit equal
-        same_fwd = torch.equal(z_k, K.angular_fwd(lat, voc, vnorm))
-        same = torch.equal(dl_k, K.angular_bwd(lat, voc, vnorm, g))
-        dl_f = K.angular_partition_bwd_ref(lat, voc, vnorm, g)
-        lat_p = lat.clone().requires_grad_()
-        (K.angular_partition_ref(lat_p, voc) * g).sum().backward()
-        dl_a = lat_p.grad
-        torch.cuda.synchronize()
-
-        sum_rel = abs(z_k.sum().item() - z_p.sum().item()) / abs(z_p.sum().item())
-        elem_rel = ((z_k - z_p).abs() / z_p.abs()).max().item()
-        grad_rel = ((dl_k - dl_a).abs().max() / dl_a.abs().max()).item()
-        # the zero row's gradient is ~1e8 (it divides by the 1e-8 clamp), so it
-        # is held to the max-rel limit only; the other rows to atol 1e-5
-        rows = slice(1, None) if zero_row else slice(None)
-        grad_abs = (dl_k[rows] - dl_f[rows]).abs().max().item()
-        fwd_err = max(fwd_err, (z_k - z_p).abs().max().item())
-        bwd_err = max(bwd_err, grad_abs)
-        log(f"[k1] B={b} D={d} V={v} zero_row={zero_row}: fwd sum rel {sum_rel:.3e}, "
-            f"elem rel {elem_rel:.3e}; grad max-rel vs autograd {grad_rel:.3e}, "
-            f"abs vs bwd_ref {grad_abs:.3e}; repeat bit-equal fwd {same_fwd} bwd {same}")
-        if not (sum_rel < FWD_SUM_REL and elem_rel < FWD_RTOL):
-            raise AssertionError(f"K1 forward disagrees at {(b, d, v, zero_row)}")
-        if not (grad_rel < GRAD_MAX_REL and grad_abs < GRAD_ATOL):
-            raise AssertionError(f"K1 backward disagrees at {(b, d, v, zero_row)}")
-        if not same_fwd:
-            raise AssertionError(f"K1 forward differs between two calls at {(b, d, v, zero_row)}")
-        if not same:
-            raise AssertionError(f"K1 backward differs between two calls at {(b, d, v, zero_row)}")
-
-    times = {}
-    for b in (64, 512):
-        lat = torch.randn(b, 300, generator=gen).to(dev)
-        voc = torch.randn(3016, 300, generator=gen).to(dev)
-        voc = voc / torch.linalg.vector_norm(voc, dim=-1, keepdim=True)
-        vnorm = torch.linalg.vector_norm(voc, dim=-1)
-        g = torch.randn(b, 1, generator=gen).to(dev)
-        fns = {"fwd": lambda: K.angular_fwd(lat, voc, vnorm),
-               "fwd_plain": lambda: K.angular_partition_ref(lat, voc),
-               "bwd": lambda: K.angular_bwd(lat, voc, vnorm, g),
-               "bwd_plain": lambda: K.angular_partition_bwd_ref(lat, voc, vnorm, g)}
-        times[b] = {k: _device_ms(torch, f) for k, f in fns.items()}
-        calls = {k: _call_ms(torch, f) for k, f in fns.items()}
-        for kind, t in (("device", times[b]), ("one call", calls)):
-            log(f"[k1] B={b} {kind} ms: fwd kernel {t['fwd']:.4f} plain {t['fwd_plain']:.4f}; "
-                f"bwd kernel {t['bwd']:.4f} plain {t['bwd_plain']:.4f}")
-    # the bounds: each input read once, each output written once
-    bounds = {}
-    for b in (64, 512):
-        d, v = 300, 3016
-        fwd_bytes = 4 * (b * d + v * d + v + b)
-        bounds[b] = {"fwd": bound_ms(2 * b * v * d, fwd_bytes),
-                     "bwd": bound_ms(4 * b * v * d, fwd_bytes + 4 * b * d)}
-        log(f"[k1] bound at B={b}: fwd {bounds[b]['fwd'][0]:.5f} ms ({bounds[b]['fwd'][1]}), "
-            f"bwd {bounds[b]['bwd'][0]:.5f} ms ({bounds[b]['bwd'][1]})")
+        errs = _check_k1(torch, K, *_k1_case(torch, dev, gen, b, d, v, zero_row), zero_row)
+        fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
+    times = {b: _k1_times(torch, K, *_k1_case(torch, dev, gen, b, 300, 3016)) for b in (64, 512)}
+    bounds = {b: _k1_bounds(b) for b in (64, 512)}
     return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": times, "bounds": bounds}
 
 
@@ -651,6 +686,136 @@ def run_curve_and_resume(torch, K, T, tmp: str, non_e2e: dict) -> dict:
             "bit_equal": bit_equal, "emb_abs": emb_abs, "loss_rel": loss_rel}
 
 
+def sweep_configs() -> list:
+    """The first ``SWEEP_K`` configs of the grid's Adam / 100-epoch bucket,
+    their epochs cut to ``SWEEP_EPOCHS`` and ``SWEEP_SENTIMENT_EPOCHS``."""
+    from mmtpu_torch.config import make_grid
+
+    bucket = [c for c in make_grid() if c["optimizer"] == "adam" and c["n_epochs"] == 100]
+    return [dict(c, n_epochs=SWEEP_EPOCHS, n_sentiment_epochs=SWEEP_SENTIMENT_EPOCHS)
+            for c in bucket[:SWEEP_K]]
+
+
+def run_sweep_chunk(torch, K, T, tmp: str) -> dict:
+    """Phase 10: one sweep chunk at full MOSI width through ``run_chunk``,
+    its K1 launches and row counts, K1 at those row counts against its plain
+    versions, four configs run alone against the chunk, diverged configs."""
+    import numpy as np
+
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.sweep.runner import run_chunk, run_config_alone
+
+    dev = torch.device("cuda", 0)
+    configs = sweep_configs()
+    k = len(configs)
+    log(f"[sweep] {k} configs (grid numbers {[c['config_num'] for c in configs]}), depth cut: "
+        f"n_epochs 100 -> {SWEEP_EPOCHS}, n_sentiment_epochs 400 -> {SWEEP_SENTIMENT_EPOCHS}")
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")),
+                               pos_mode="shared", pos_dims=dims)
+    n_train, n_valid, n_test = (prep.sif_init[s].shape[0] for s in ("train", "valid", "test"))
+
+    rows = {"fwd": [], "bwd": []}
+    wrapped = {"fwd": K.angular_fwd, "bwd": K.angular_bwd}
+
+    def recording(kind):  # the rows of each call; the wrapper itself counts launches
+        def call(lat, *args):
+            rows[kind].append(int(lat.shape[0]))
+            return wrapped[kind](lat, *args)
+        return call
+
+    K.angular_fwd, K.angular_bwd = recording("fwd"), recording("bwd")
+    torch.cuda.synchronize(dev)  # the context exists before its statistics are reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches(K, T)
+    try:
+        t0 = time.perf_counter()
+        chunk = run_chunk(configs, prep, batch_size=64, device=dev, return_embeddings=True)
+        wall = time.perf_counter() - t0
+    finally:
+        K.angular_fwd, K.angular_bwd = wrapped["fwd"], wrapped["bwd"]
+    launches = _read_launches(K, T)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    train_steps = SWEEP_EPOCHS * -(-n_train // 64)
+    infer_steps = SWEEP_EPOCHS * (-(-n_valid // 512) + -(-n_test // 512))
+    want_rows = [k * 64] * train_steps + [k * 512] * infer_steps
+    log(f"[sweep] chunk of {k}: wall {wall:.3f} s, phases "
+        f"{ {p: round(t, 3) for p, t in chunk.phase_s.items()} }; launches {launches}; K1 rows "
+        f"per call: {sorted(set(rows['fwd']))}; peak memory {peak_gib:.2f} GiB")
+    for kind in ("fwd", "bwd"):
+        if launches[f"k1_{kind}"] != len(want_rows) or rows[kind] != want_rows:
+            raise AssertionError(f"K1-{kind}: {launches[f'k1_{kind}']} launches at rows "
+                                 f"{rows[kind]}, expected {len(want_rows)} ({train_steps} at "
+                                 f"{k * 64}, {infer_steps} at {k * 512})")
+    if launches["k2_adam"] or launches["k2_sgd"]:
+        raise AssertionError(f"K2 launched in the chunk: {launches}")
+
+    ok = ~chunk.diverged
+    log(f"[sweep] diverged: {int(chunk.diverged.sum())} of {k} "
+        f"{chunk.config_nums[chunk.diverged].tolist()}; final losses "
+        f"{np.round(chunk.final_train_loss, 4).tolist()}")
+    results = [chunk.embeddings[s] for s in ("train", "valid", "test")] + [
+        chunk.predictions, chunk.final_train_loss]
+    if not ok.any() or not all(np.isfinite(r[ok]).all() for r in results):
+        raise AssertionError("a config that did not diverge has non-finite results")
+    if any(np.isfinite(results[0][i]).all() and np.isfinite(results[-1][i])
+           for i in np.nonzero(chunk.diverged)[0]):
+        raise AssertionError("a finite config is reported diverged")
+
+    # configs run alone: the first non-diverged config of each norm at each
+    # learning rate.  All are held at the loss and prediction gates; the
+    # embeddings at lr 1e-4 only.  Adam's first step moves a coordinate by
+    # lr x sign(g), so where a gradient component is within rounding of zero
+    # any two float orders of the same fit (the chunk's batched products and
+    # K1's grid at K*B rows against one config's) move that coordinate apart
+    # by up to a few lr: at lr 1e-3 a few coordinates of 660,000 differ by
+    # 2e-3 to 3.3e-3 (PERF.md section 6), above a 2e-4 gate by nature.
+    picks = [(next(i for i in range(k) if ok[i] and configs[i]["norm"] == norm
+                   and configs[i]["lr"] == lr), lr == 1e-4)
+             for lr in (1e-4, 1e-3) for norm in ("batch_norm", "layer_norm")]
+    parity, alone_train_s = {}, []
+    for i, emb_gated in picks:
+        c = configs[i]
+        alone = run_config_alone(c, prep, batch_size=64, device=dev)
+        alone_train_s.append(alone.phase_s["train"])
+        loss_rel = abs(alone.final_train_loss[0] - chunk.final_train_loss[i]) / abs(
+            alone.final_train_loss[0])
+        diffs = [np.abs(alone.embeddings[s][0] - chunk.embeddings[s][i])
+                 for s in ("train", "valid", "test")]
+        emb_abs = max(float(d.max()) for d in diffs)
+        emb_over = sum(int((d > SWEEP_ATOL).sum()) for d in diffs)
+        pred_abs = float(np.abs(alone.predictions[0] - chunk.predictions[i]).max())
+        parity[int(c["config_num"])] = {"norm": c["norm"], "lr": c["lr"],
+                                        "loss_rel": float(loss_rel), "emb_abs": emb_abs,
+                                        "emb_over_atol": emb_over, "pred_abs": pred_abs}
+        log(f"[sweep] config {c['config_num']} ({c['norm']}, lr {c['lr']}) alone against the "
+            f"chunk: final loss rel {loss_rel:.3e}, embeddings max abs {emb_abs:.3e} ("
+            f"{emb_over} of {sum(d.size for d in diffs)} above {SWEEP_ATOL}"
+            f"{'' if emb_gated else ', not gated'}), test predictions max abs {pred_abs:.3e}")
+        if not (loss_rel < SWEEP_RTOL and pred_abs < SWEEP_ATOL
+                and (emb_abs < SWEEP_ATOL or not emb_gated)):
+            raise AssertionError(f"config {c['config_num']} alone disagrees with the chunk")
+
+    work = n_train * SWEEP_EPOCHS
+    rate = k * work / chunk.phase_s["train"]
+    single = work / statistics.median(alone_train_s)
+    log(f"[sweep] train phase: {rate:.1f} config-utterance-epochs/s for the chunk; one config "
+        f"alone {single:.1f}, x{k} = {k * single:.1f} (printed, not claimed)")
+
+    gen = torch.Generator().manual_seed(3)
+    k1 = {"times": {}, "bounds": {}, "fwd_err": 0.0, "bwd_err": 0.0}
+    for b in (k * 64, k * 512):
+        case = _k1_case(torch, dev, gen, b, 300, 3016)
+        errs = _check_k1(torch, K, *case)
+        k1["fwd_err"], k1["bwd_err"] = max(k1["fwd_err"], errs[0]), max(k1["bwd_err"], errs[1])
+        k1["times"][b] = _k1_times(torch, K, *case, single_calls=False, reps=20)
+        k1["bounds"][b] = _k1_bounds(b)
+    return {"launches": launches, "wall_s": wall, "phase_s": chunk.phase_s,
+            "peak_gib": peak_gib, "rate": rate, "single_rate": single, "parity": parity,
+            "diverged": chunk.config_nums[chunk.diverged].tolist(), "k1": k1}
+
+
 def check_small_agreement(torch) -> None:
     """Phase 7: small configs on the GPU (kernels) and on the CPU (plain
     versions) with the same draws must agree."""
@@ -755,12 +920,14 @@ def main() -> int:
         fused = run_fused_path(torch, K, T, tmp)
         lazy = run_lazy_path(torch, K, T, tmp)
         resume = run_curve_and_resume(torch, K, T, tmp, non_e2e)
+        sweep = run_sweep_chunk(torch, K, T, tmp)
     check_small_agreement(torch)
 
     t, kb = k1["times"], k1["bounds"]
+    st, sb = sweep["k1"]["times"], sweep["k1"]["bounds"]
     by_path = {"non_e2e": non_e2e["launches"], "e2e": e2e["launches"],
                "fused_sgd": fused["sgd"]["launches"], "fused_adam": fused["adam"]["launches"],
-               **lazy["launches"], **resume["launches"]}
+               **lazy["launches"], **resume["launches"], "sweep_chunk": sweep["launches"]}
     k1_path = {"fwd": e2e["launches"]["k1_fwd"], "bwd": e2e["launches"]["k1_bwd"]}
     record = {"kernels": [
         {"name": f"K1-{kind} angular_partition", "route": "cuda", "source": source,
@@ -770,7 +937,12 @@ def main() -> int:
          "bound_ms": kb[64][kind][0], "bound_by": kb[64][kind][1], "library_ms": None,
          "ms_b64": t[64][kind], "bound_ms_b64": kb[64][kind][0],
          "ms_b512": t[512][kind], "plain_ms_b512": t[512][f"{kind}_plain"],
-         "bound_ms_b512": kb[512][kind][0], "bound_by_b512": kb[512][kind][1]}
+         "bound_ms_b512": kb[512][kind][0], "bound_by_b512": kb[512][kind][1],
+         "launches_sweep_chunk": sweep["launches"][f"k1_{kind}"],
+         "max_abs_err_sweep_rows": sweep["k1"][f"{kind}_err"],
+         **{f"{key}_b{b}": val for b in st for key, val in (
+             ("ms", st[b][kind]), ("plain_ms", st[b][f"{kind}_plain"]),
+             ("bound_ms", sb[b][kind][0]), ("bound_by", sb[b][kind][1]))}}
         for kind, line, source in (("fwd", 171, "mmtpu_torch/csrc/angular.cu"),
                                    ("bwd", 199, "mmtpu_torch/csrc/angular_bwd.cu"))
     ] + [
@@ -793,7 +965,8 @@ def main() -> int:
                   "fused": {k: {m: v[m] for m in ("loss_rel", "utt_s_dense", "utt_s_fused")}
                             for k, v in fused.items()},
                   "lazy": {k: v for k, v in lazy.items() if k != "launches"},
-                  "curve_and_resume": {k: v for k, v in resume.items() if k != "launches"}},
+                  "curve_and_resume": {k: v for k, v in resume.items() if k != "launches"},
+                  "sweep_chunk": {k: v for k, v in sweep.items() if k not in ("launches", "k1")}},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,7 +13,10 @@ synthesis, numpy preparation).
 Ported and running: the MMB1/MMB2 latent fit and the e2e fit with their
 inference fits, the sentiment MLP, reports, artifacts and the CLI
 (:mod:`mmtpu_torch.run`), including ``--lazy_adam``, ``--validation_curve``
-and ``--resume_dir``.  What is not ported yet raises :func:`not_ported`.
+and ``--resume_dir``; and one chunk of the hyperparameter sweep, K configs
+trained as one program with a leading config axis
+(:func:`mmtpu_torch.sweep.runner.run_chunk`).  What is not ported yet raises
+:func:`not_ported`.
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,11 @@ bias}}`` with ``(in, out)`` weights, so :mod:`mmtpu_torch.convert` moves them
 between the packages unchanged.  The stacked layout (:func:`stack_decoder`,
 one ``(D, sum F_h)`` weight pair for all heads) is what the fused
 decoder-update kernel K2 (:mod:`mmtpu_torch.kernels.decoder_update`) works on.
+
+Every leaf may carry a leading config axis (the sweep's K configs): latents
+``(K, B, D)``, weights ``(K, D, F)``, biases and norm parameters ``(K, F)``,
+``norm_code`` ``(K,)``; dims are counted from the end
+(:func:`mmtpu_torch.tree.per_config`).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Mapping, Tuple
 import torch
 
 from mmtpu_torch.models.init import torch_linear_init
+from mmtpu_torch.tree import per_config, rowwise
 
 MMB1_HEADS: Tuple[str, ...] = ("audio", "visual")
 MMB2_HEADS: Tuple[str, ...] = (
@@ -86,40 +92,43 @@ def init_decoder(gen: torch.Generator, embed_dim: int, audio_dim: int, visual_di
 
 def apply_norm(x: torch.Tensor, norm_params: Mapping[str, torch.Tensor], norm_code,
                batch_weights: torch.Tensor | None = None) -> torch.Tensor:
-    """Branchless none / LayerNorm / train-mode BatchNorm on ``(B, D)``.
+    """Branchless none / LayerNorm / train-mode BatchNorm on ``(B, D)``, or
+    on ``(K, B, D)`` with per-config parameters.
 
-    LayerNorm over features; BatchNorm with batch statistics everywhere (the
-    reference never calls ``.eval()``).  Both use biased variance and eps
-    1e-5.  ``batch_weights`` are ``(B,)`` 0/1 row-validity weights: padded
-    rows are left out of the batch statistics.  ``norm_code`` may be an int
-    or a 0-d tensor; all three results are computed and one is selected.
+    LayerNorm over features; BatchNorm with batch statistics over the row
+    axis, per config (the reference never calls ``.eval()``).  Both use
+    biased variance and eps 1e-5.  ``batch_weights`` are ``(B,)`` 0/1
+    row-validity weights: padded rows are left out of the batch statistics.
+    ``norm_code`` may be an int, a 0-d tensor or a ``(K,)`` tensor; all three
+    results are computed and one is selected per config.
     """
-    scale, bias = norm_params["scale"], norm_params["bias"]
+    scale, bias = rowwise(norm_params["scale"]), rowwise(norm_params["bias"])
     ln_mean = torch.mean(x, dim=-1, keepdim=True)
     ln_var = torch.var(x, dim=-1, keepdim=True, correction=0)
     ln = (x - ln_mean) / torch.sqrt(ln_var + _NORM_EPS) * scale + bias
     if batch_weights is None:
-        bn_mean = torch.mean(x, dim=0, keepdim=True)
-        bn_var = torch.var(x, dim=0, keepdim=True, correction=0)
+        bn_mean = torch.mean(x, dim=-2, keepdim=True)
+        bn_var = torch.var(x, dim=-2, keepdim=True, correction=0)
     else:
-        w = batch_weights[:, None]
-        denom = torch.clamp_min(torch.sum(w), 1.0)
-        bn_mean = torch.sum(x * w, dim=0, keepdim=True) / denom
-        bn_var = torch.sum(torch.square(x - bn_mean) * w, dim=0, keepdim=True) / denom
+        w = batch_weights[..., None]
+        denom = torch.clamp_min(torch.sum(w, dim=-2, keepdim=True), 1.0)
+        bn_mean = torch.sum(x * w, dim=-2, keepdim=True) / denom
+        bn_var = torch.sum(torch.square(x - bn_mean) * w, dim=-2, keepdim=True) / denom
     bn = (x - bn_mean) / torch.sqrt(bn_var + _NORM_EPS) * scale + bias
-    code = torch.as_tensor(norm_code, device=x.device)
+    code = per_config(torch.as_tensor(norm_code, device=x.device), x.ndim)
     return torch.where(code == NORM_LAYER, ln, torch.where(code == NORM_BATCH, bn, x))
 
 
 def apply_decoder(params: Mapping, latents: torch.Tensor, norm_code=NORM_NONE,
                   batch_weights: torch.Tensor | None = None) -> dict:
     """Latent -> ``{head: {"mu": (B, F_h), "sigma": (B, F_h)}}`` with
-    ``mu = x @ w_mu + b_mu`` and ``sigma = exp(x @ w_log_sigma + b_log_sigma)``."""
+    ``mu = x @ w_mu + b_mu`` and ``sigma = exp(x @ w_log_sigma + b_log_sigma)``
+    (``(K, B, F_h)`` under a config axis)."""
     x = apply_norm(latents, params["norm"], norm_code, batch_weights)
     out = {}
     for name, h in params["heads"].items():
-        mu = x @ h["w_mu"] + h["b_mu"]
-        sigma = torch.exp(x @ h["w_log_sigma"] + h["b_log_sigma"])
+        mu = x @ h["w_mu"] + rowwise(h["b_mu"])
+        sigma = torch.exp(x @ h["w_log_sigma"] + rowwise(h["b_log_sigma"]))
         out[name] = {"mu": mu, "sigma": sigma}
     return out
 
@@ -171,6 +180,6 @@ def apply_decoder_stacked(params: Mapping, latents: torch.Tensor, norm_code=NORM
     (pad columns included); callers slice each head at its offset."""
     x = apply_norm(latents, params["norm"], norm_code, batch_weights)
     hs = params["heads"]
-    mu = x @ hs["w_mu"] + hs["b_mu"]
-    sigma = torch.exp(x @ hs["w_log_sigma"] + hs["b_log_sigma"])
+    mu = x @ hs["w_mu"] + rowwise(hs["b_mu"])
+    sigma = torch.exp(x @ hs["w_log_sigma"] + rowwise(hs["b_log_sigma"]))
     return mu, sigma

@@ -15,13 +15,14 @@ def gaussian_logpdf_masked(mu: torch.Tensor, sigma: torch.Tensor, values: torch.
 
     ``mu``/``sigma`` are ``(B, F)`` (sigma already exp'd); ``values`` and
     ``mask`` broadcast to ``(B, L, F)``; a ``(B, L)`` token mask is expanded
-    over the feature axis.
+    over the feature axis.  Under the sweep's config axis mu/sigma are
+    ``(K, B, F)`` and the data and masks broadcast to ``(K, B, L, F)``.
     """
     if mask.ndim == 2:
         mask = mask[:, :, None]
-    sig_sq = torch.square(sigma)[:, None, :]  # (B, 1, F)
+    sig_sq = torch.square(sigma)[..., None, :]  # (B, 1, F)
     term1 = -0.5 * (_LOG_2PI + torch.log(sig_sq))
-    diff = values - mu[:, None, :]
+    diff = values - mu[..., None, :]
     term2 = torch.square(diff) / (2.0 * sig_sq)
     log_prob = (term1 - term2) * mask
     return torch.sum(log_prob, dim=(-1, -2))
@@ -39,7 +40,8 @@ def gaussian_suff_stats(values: torch.Tensor, mask: torch.Tensor):
 
 def gaussian_logpdf_suffstats(mu: torch.Tensor, sigma: torch.Tensor, s0: torch.Tensor,
                               s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
-    """The masked Gaussian log-likelihood from sufficient statistics, ``(B,)``:
+    """The masked Gaussian log-likelihood from sufficient statistics, ``(B,)``
+    (``(K, B)`` for ``(K, B, F)`` operands):
     ``sum_f [term1*s0 - (s2 - 2 mu s1 + mu^2 s0) / (2 sig^2)]``."""
     sig_sq = torch.square(sigma)
     term1 = -0.5 * (_LOG_2PI + torch.log(sig_sq))

@@ -8,6 +8,7 @@ from typing import Mapping, Sequence
 import torch
 
 from mmtpu_torch.ops.gaussian import gaussian_logpdf_masked
+from mmtpu_torch.tree import per_config
 
 
 def joint_log_prob(head_params: Mapping[str, Mapping[str, torch.Tensor]],
@@ -30,10 +31,11 @@ def joint_log_prob(head_params: Mapping[str, Mapping[str, torch.Tensor]],
 def weighted_joint(head_lp: Sequence[torch.Tensor], word_log_prob: torch.Tensor,
                    word_loss_weight) -> torch.Tensor:
     """``sum(head_lp) (1 - w) / n_heads + w word_log_prob`` for weight w
-    (reference ``losses.py:267-270``); the plain sum when w is None."""
+    (reference ``losses.py:267-270``); the plain sum when w is None.  Under
+    a config axis the log-probs are ``(K, B)`` and w is ``(K,)``."""
     gauss_total = sum(head_lp)
     if word_loss_weight is None:
         return gauss_total + word_log_prob
-    w = word_loss_weight
+    w = per_config(word_loss_weight, word_log_prob.ndim)
     other = (1.0 - w) / len(head_lp)
     return gauss_total * other + w * word_log_prob

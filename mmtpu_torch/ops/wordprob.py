@@ -8,6 +8,11 @@ here is the plain PyTorch version of ``Z``; by default
 :func:`mmtpu_torch.kernels.angular.angular_partition`, which launches the
 hand-written CUDA kernel for a CUDA tensor and uses this plain version for a
 CPU tensor.
+
+Under the sweep's config axis the latents are ``(K, B, D)`` against the one
+shared ``(V, D)`` vocabulary: their rows are flattened to ``(K*B, D)``, so
+one call of ``Z`` (one K1 forward and one backward) serves all K configs.
+The rows are independent, so no value crosses configs.
 """
 
 from __future__ import annotations
@@ -39,11 +44,24 @@ def angular_partition(latents: torch.Tensor, vocab_embeddings: torch.Tensor) -> 
     return torch.sum(1.0 - _safe_acos(cos) / _PI, dim=-1, keepdim=True)
 
 
+def _token_mask(mask: torch.Tensor, word_weights: torch.Tensor) -> torch.Tensor:
+    """The ``(..., B, L)`` token mask; a ``(..., B, L, 1)`` one is squeezed."""
+    return mask[..., 0] if mask.ndim > word_weights.ndim else mask
+
+
+def _partition(partition_fn, latents: torch.Tensor, vocab_embeddings: torch.Tensor):
+    """``Z`` as ``(..., B, 1)``; leading config rows go through one call."""
+    if latents.ndim == 2:
+        return partition_fn(latents, vocab_embeddings)
+    z = partition_fn(latents.reshape(-1, latents.shape[-1]), vocab_embeddings)
+    return z.reshape(*latents.shape[:-1], 1)
+
+
 def _sentence_angular_score(latents: torch.Tensor, sent_embeddings: torch.Tensor) -> torch.Tensor:
     """``1 - acos(cos(sent_word, latent)) / pi`` per token (losses.py:84)."""
-    lat_norm = torch.linalg.vector_norm(latents, dim=-1)[:, None]  # (B, 1)
+    lat_norm = torch.linalg.vector_norm(latents, dim=-1)[..., None]  # (B, 1)
     sent_norm = torch.linalg.vector_norm(sent_embeddings, dim=-1)  # (B, L)
-    dots = torch.einsum("bld,bd->bl", sent_embeddings, latents)
+    dots = torch.einsum("...ld,...d->...l", sent_embeddings, latents)
     cos = dots / torch.clamp_min(sent_norm * lat_norm, _COS_EPS)
     return 1.0 - _safe_acos(cos) / _PI
 
@@ -57,7 +75,8 @@ def word_logprob_angular(
     a: float = 1e-3,
     partition_fn=None,
 ) -> torch.Tensor:
-    """Angular-distance word log-likelihood per utterance, ``(B,)``.
+    """Angular-distance word log-likelihood per utterance, ``(B,)`` (``(K,
+    B)`` for ``(K, B, D)`` latents).
 
     As :func:`mmtpu.ops.wordprob.word_logprob_angular`; ``partition_fn``
     overrides the computation of ``Z_s`` (default: the kernel wrapper
@@ -65,9 +84,8 @@ def word_logprob_angular(
     """
     if partition_fn is None:
         from mmtpu_torch.kernels.angular import angular_partition as partition_fn
-    if mask.ndim == 3:
-        mask = mask[:, :, 0]
-    z = partition_fn(latents, vocab_embeddings)  # (B, 1)
+    mask = _token_mask(mask, word_weights)
+    z = _partition(partition_fn, latents, vocab_embeddings)  # (B, 1)
     alpha = 1.0 / (z * a + 1.0)
     unigram = alpha * word_weights
     score = _sentence_angular_score(latents, sent_embeddings)
@@ -86,13 +104,12 @@ def word_logprob_dot_prod(
 ) -> torch.Tensor:
     """Dot-product (softmax-form) word log-likelihood per utterance, ``(B,)``
     (:func:`mmtpu.ops.wordprob.word_logprob_dot_prod`)."""
-    if mask.ndim == 3:
-        mask = mask[:, :, 0]
+    mask = _token_mask(mask, word_weights)
     logits = latents @ vocab_embeddings.T
     z = torch.sum(torch.exp(logits), dim=-1, keepdim=True)  # (B, 1)
     alpha = 1.0 / (z * a + 1.0)
     unigram = alpha * word_weights
-    dot = torch.einsum("bld,bd->bl", sent_embeddings, latents)
+    dot = torch.einsum("...ld,...d->...l", sent_embeddings, latents)
     context = (1.0 - alpha) * torch.exp(dot) / z
     log_probs = torch.log(unigram + context) * mask
     return torch.sum(log_probs, dim=-1)

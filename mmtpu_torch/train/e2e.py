@@ -18,6 +18,10 @@ the generator heads only while the norm keeps training (the reference's e2e
 ``freeze_weights``, ``simplesif.py:689-691``, ``models.py:170-178``).  With
 ``fused_dec_update`` the decoder weights update in kernel K2
 (:func:`mmtpu_torch.train.fused.fused_joint_step`).
+
+Under the sweep's config axis (as :func:`mmtpu_torch.train.latents.fit_latents`
+takes it) the sentiment head is per config too, ``(K, D, H)`` weights, and
+each config's joint loss is its own batch mean.
 """
 
 from __future__ import annotations
@@ -33,9 +37,11 @@ from mmtpu_torch.models.sentiment import apply_sentiment
 from mmtpu_torch.train.latents import (
     LatentFitSpec,
     PermutedEpoch,
+    epoch_active,
     epoch_permutation,
     finish_fit_decoder,
     fit_kind,
+    gather_batch,
     joint_neg_log_prob_per_sample,
     make_inner_valid_spec,
     start_fit_decoder,
@@ -43,7 +49,7 @@ from mmtpu_torch.train.latents import (
     valid_fit_loss,
 )
 from mmtpu_torch.train.optim import init_opt_state, opt_update
-from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +79,15 @@ class E2EFitSpec:
 
 
 def senti_l1(sen, lat, y, mask) -> torch.Tensor:
-    """Per-sample L1 error of the sentiment MLP, ``(B,)``: unlabeled rows
-    (``mask`` 0) are zeroed before the mean over the outputs."""
+    """Per-sample L1 error of the sentiment MLP, ``(B,)`` (``(K, B)`` for
+    ``(K, B, D)`` latents): unlabeled rows (``mask`` 0) are zeroed before the
+    mean over the outputs."""
     err = torch.abs(apply_sentiment(sen, lat) - y)
     if mask is not None:
         err = err * (mask if err.ndim == mask.ndim else mask[..., None])
-    if err.ndim > 1:
-        err = torch.mean(err, dim=tuple(range(1, err.ndim)))
+    rows = lat.ndim - 1  # the row axis, after the config axis if there is one
+    if err.ndim > rows:
+        err = torch.mean(err, dim=tuple(range(rows, err.ndim)))
     return err
 
 
@@ -94,7 +102,8 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     final sample appended).
 
     hp: as :func:`mmtpu_torch.train.latents.fit_latents` plus
-    ``likelihood_weight`` and optionally ``train_heads``.  ``senti_mask`` is
+    ``likelihood_weight`` and optionally ``train_heads``; under a config axis
+    all ``(K,)``, as the inputs are there.  ``senti_mask`` is
     the per-utterance 0/1 labeled mask (None: fully supervised).  ``perms``,
     one permutation per epoch, replaces the draws from ``generator``.
     """
@@ -107,24 +116,25 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     device = init_embed.device
     kind = fit_kind(spec, hp)
     lazy = spec.opt_kind == "adam" and spec.lazy_adam  # mmtpu's gate: the static kind
-    n = init_embed.shape[0]
+    n = init_embed.shape[-2]
     bsz = spec.batch_size
     n_batches = -(-n // bsz)
     pad = n_batches * bsz - n
     valid = torch.cat([torch.ones(n, device=device), torch.zeros(pad, device=device)])
     valid = valid.reshape(n_batches, bsz)
     pad_idx = torch.zeros(pad, dtype=torch.long, device=device)
-    lr, lw = hp["lr"], hp["likelihood_weight"]
+    lr = hp["lr"]
+    lw = per_config(hp["likelihood_weight"], init_embed.ndim - 1)  # against (B,) or (K, B)
     heads_gate = hp["train_heads"] if "train_heads" in hp else None
-    n_active = int(hp["n_epochs"])
 
     embed = init_embed.detach().to(torch.float32).clone()
+    n_cfg = embed.shape[0] if embed.ndim == 3 else None  # the config axis
     was_stacked = is_stacked(decoder_params)
     dec = start_fit_decoder(decoder_params, lspec)
     sen = tree_map(torch.Tensor.detach, senti_params)
-    e_opt = init_opt_state(embed, kind)
-    d_opt = init_opt_state(dec, kind)
-    s_opt = init_opt_state(sen, kind)
+    e_opt = init_opt_state(embed, kind, n_cfg)
+    d_opt = init_opt_state(dec, kind, n_cfg)
+    s_opt = init_opt_state(sen, kind, n_cfg)
     dec_gates = None
     if heads_gate is not None:
         dec_gates = {"heads": tree_map(lambda _: heads_gate, dec["heads"]),
@@ -132,13 +142,13 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
 
     losses, curve = [], []
     for epoch in range(spec.n_epochs_max):
-        active = epoch < n_active
+        active = epoch_active(epoch, hp)
         perm = epoch_permutation(epoch, n, spec, device, generator, perms)
         table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
         batch_losses = []
         for s in range(n_batches):
-            j = table.idx[s * bsz:(s + 1) * bsz]
-            b = {k: v[j] for k, v in data.items()}
+            j = table.batch_index(s)
+            b = gather_batch(data, j)
             y = labels[j]
             mask = None if senti_mask is None else senti_mask[j]
             if spec.fused_dec_update:
@@ -156,10 +166,11 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
                 sen = tree_map(lambda t: t.detach().requires_grad_(), sen)
                 neg = joint_neg_log_prob_per_sample(dec, rows, b, vocab_emb, hp, lspec, valid[s])
                 per_sample = lw * neg + (1.0 - lw) * senti_l1(sen, rows, y, mask)
-                loss = torch.sum(per_sample * valid[s]) / torch.clamp_min(torch.sum(valid[s]),
-                                                                          1.0)
+                loss = torch.sum(per_sample * valid[s], dim=-1) / torch.clamp_min(
+                    torch.sum(valid[s]), 1.0)
                 dec_leaves, sen_leaves = tree_leaves(dec), tree_leaves(sen)
-                grads = torch.autograd.grad(loss, [rows] + dec_leaves + sen_leaves)
+                # per-config means summed: each config's gradient is its own
+                grads = torch.autograd.grad(loss.sum(), [rows] + dec_leaves + sen_leaves)
                 g_rows = grads[0]
                 g_dec = tree_unflatten(dec, grads[1:1 + len(dec_leaves)])
                 g_sen = tree_unflatten(sen, grads[1 + len(dec_leaves):])
@@ -171,11 +182,12 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
             table.step(s, g_rows)
             batch_losses.append(loss.detach())
         embed, e_opt = table.finish()
-        losses.append(torch.sum(torch.stack(batch_losses)))
+        losses.append(torch.sum(torch.stack(batch_losses), dim=0))
         if inner_spec is not None:
             curve.append(valid_curve_entry(epoch, spec, validation, dec, vocab_emb, hp,
                                            inner_spec))
-    out = (embed, finish_fit_decoder(dec, data, lspec, was_stacked), sen, torch.stack(losses))
+    out = (embed, finish_fit_decoder(dec, data, lspec, was_stacked), sen,
+           torch.stack(losses, dim=-1))
     if inner_spec is None:
         return out
     curve.append(valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec))

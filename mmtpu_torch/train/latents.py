@@ -19,6 +19,15 @@ every epoch, :func:`fit_latents_segment` an epoch range, so chained segments
 (the checkpointed fit, :mod:`mmtpu_torch.train.chunked`) are the same fit.  With ``valid_every`` and a ``validation`` split the fit
 also returns the recursive validation curve.
 
+The sweep's config axis: with ``(K, N, D)`` init embeddings, a decoder
+whose leaves lead with K, ``(K,)`` hp values and one permutation per config
+per epoch (``(K, N)``), the same functions fit K configs as one program.
+Each config's rows, batch-norm statistics, optimizer steps and epoch mask
+are its own; the step's K per-config batch means are summed for one
+backward, and no other reduction crosses configs.  The shared positional
+table of the sweep's data (``pos_table`` / ``pos_s0..2`` with a per-config
+``pos_mask``) passes through each batch whole.
+
 The decoder may travel in the stacked layout
 (``LatentFitSpec.stacked_heads``, or ``fused_dec_update``, whose steps run
 the fused decoder-update kernel K2 through
@@ -61,7 +70,7 @@ from mmtpu_torch.train.optim import (
     lazy_adam_touch,
     opt_update,
 )
-from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,19 +111,27 @@ def _word_logprob(spec: LatentFitSpec, latents, vocab_emb, b):
 
 
 def _head_parts(head: str, b) -> list:
-    """The data parts a head's Gaussian factors over, in its column order."""
-    if "pos_table" in b or "pos_s0" in b:
-        raise NotImplementedError(
-            "shared positional tables (the sweep's layout) are not ported yet "
-            "(ROADMAP queue 1, sweep)")
+    """The data parts a head's Gaussian factors over, in its column order:
+    its streams' segments, each audio and visual segment followed by the
+    shared positional table's channels where the data has one, masked by the
+    config's ``pos_mask`` (its own block of the table; the other channels
+    give zero log-probability and zero gradients)."""
     use_stats = "audio_s0" in b
     parts = []
     for seg in head_segments(head):
         stream = "text_gauss" if seg == "text" else seg
         if use_stats:
             parts.append(("stats", b[f"{stream}_s0"], b[f"{stream}_s1"], b[f"{stream}_s2"]))
+            if seg != "text" and "pos_s0" in b:
+                pm = b["pos_mask"]
+                parts.append(("stats", b["pos_s0"] * pm, b["pos_s1"] * pm, b["pos_s2"] * pm))
         else:
-            parts.append(("raw", b[stream], b[f"{stream}_mask"]))
+            mask = b[f"{stream}_mask"]  # a (..., B, L) token mask covers every feature
+            parts.append(("raw", b[stream], mask[..., None] if mask.ndim < b[stream].ndim
+                          else mask))
+            if seg != "text" and "pos_table" in b:
+                pm = b["pos_mask"]  # (P,), or (K, 1, P): one more axis for the sequence
+                parts.append(("raw", b["pos_table"], pm if pm.ndim == 1 else pm[..., None, :]))
     return parts
 
 
@@ -129,8 +146,8 @@ def _head_log_prob(head: str, mu, sigma, b) -> torch.Tensor:
     ofs = 0
     for part in _head_parts(head, b):
         f = part[1].shape[-1]
-        mu_s = mu[:, ofs:ofs + f]
-        sig_s = sigma[:, ofs:ofs + f]
+        mu_s = mu[..., ofs:ofs + f]
+        sig_s = sigma[..., ofs:ofs + f]
         if part[0] == "stats":
             total = total + gaussian_logpdf_suffstats(mu_s, sig_s, part[1], part[2], part[3])
         else:
@@ -145,7 +162,8 @@ def stacked_head_log_probs(spec, mu_all, sigma_all, b) -> list:
     head_lp, ofs = [], 0
     for h in (MMB1_HEADS if spec.unimodal else MMB2_HEADS):
         f = head_width(h, b)
-        head_lp.append(_head_log_prob(h, mu_all[:, ofs:ofs + f], sigma_all[:, ofs:ofs + f], b))
+        head_lp.append(_head_log_prob(h, mu_all[..., ofs:ofs + f], sigma_all[..., ofs:ofs + f],
+                                      b))
         ofs += f
     if ofs > mu_all.shape[-1]:
         raise ValueError(f"stacked decoder is {mu_all.shape[-1]} wide, the heads need {ofs}")
@@ -174,12 +192,13 @@ def joint_neg_log_prob_per_sample(decoder_params, lat, b, vocab_emb, hp, spec: L
 
 def batch_neg_log_prob(embed_batch, decoder_params, b, vocab_emb, hp, spec: LatentFitSpec,
                        row_valid=None) -> torch.Tensor:
-    """Mean negative joint log-likelihood of one minibatch over its valid rows."""
+    """Mean negative joint log-likelihood of one minibatch over its valid rows
+    (one mean per config, ``(K,)``, under a config axis)."""
     neg = joint_neg_log_prob_per_sample(decoder_params, embed_batch, b, vocab_emb, hp, spec,
                                         row_valid)
     if row_valid is None:
-        return torch.mean(neg)
-    return torch.sum(neg * row_valid) / torch.clamp_min(torch.sum(row_valid), 1.0)
+        return torch.mean(neg, dim=-1)
+    return torch.sum(neg * row_valid, dim=-1) / torch.clamp_min(torch.sum(row_valid), 1.0)
 
 
 def train_view(data: Mapping) -> dict:
@@ -189,6 +208,33 @@ def train_view(data: Mapping) -> dict:
     drop = {"audio", "audio_mask", "visual", "visual_mask", "text_gauss",
             "text_gauss_mask", "pos_table"}
     return {k: v for k, v in data.items() if k not in drop}
+
+
+_SHARED = ("pos_table", "pos_mask", "pos_s0", "pos_s1", "pos_s2")
+
+
+def gather_batch(data: Mapping, j: torch.Tensor) -> dict:
+    """A minibatch's data: the per-utterance arrays at rows ``j`` (``(B,)``,
+    or ``(K, B)`` for one row order per config); the shared positional table
+    and its per-config mask pass through whole."""
+    return {k: (v if k in _SHARED else v[j]) for k, v in data.items()}
+
+
+def take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a ``(N, D)`` or ``(K, N, D)`` table: ``idx`` is
+    ``(R,)``, one row order for every config, or ``(K, R)``, one per config."""
+    if idx.ndim == 1:
+        return t[idx] if t.ndim == 2 else t[:, idx]
+    return torch.gather(t, 1, idx[..., None].expand(*idx.shape, t.shape[-1]))
+
+
+def epoch_active(epoch: int, hp: Mapping):
+    """Whether ``epoch`` trains: a bool for one config; under a config axis a
+    ``(K,)`` mask on the device (no per-config value is read on the host)."""
+    n = hp["n_epochs"]
+    if isinstance(n, torch.Tensor) and n.ndim == 1:
+        return epoch < n
+    return epoch < int(n)
 
 
 def start_fit_decoder(decoder_params, spec) -> dict:
@@ -231,43 +277,59 @@ class PermutedEpoch:
     block, with its zero-gradient steps in closed form (caught up before the
     forward, the rest in one epilogue), and drops an inactive epoch whole at
     the end instead of gating each step.
+
+    Under a config axis the table is ``(K, N, D)``, ``perm`` is ``(K, N)``
+    (or ``(N,)`` shared) and ``lr`` and ``active`` are ``(K,)``: each config
+    steps its own rows at its own rate, and an inactive config's epoch is
+    dropped whole, per config.
     """
 
     def __init__(self, embed, e_opt: OptState, perm, pad_idx, bsz: int, kind: str, lazy: bool,
-                 lr, active: bool):
-        self.idx = torch.cat([perm, pad_idx])
+                 lr, active):
+        self.idx = torch.cat([perm, pad_idx.expand(*perm.shape[:-1], -1)], dim=-1)
         self.perm, self.bsz, self.kind, self.lazy, self.lr, self.active = (
             perm, bsz, kind, lazy, lr, active)
-        self.n_batches = self.idx.numel() // bsz
+        self.n_batches = self.idx.shape[-1] // bsz
         self.before = (embed, e_opt)
-        self.embp = embed[self.idx]
+        self.embp = take_rows(embed, self.idx)
         self.e_opt = e_opt
         if kind == "adam":
-            self.e_opt = OptState(m=e_opt.m[self.idx], v=e_opt.v[self.idx], count=e_opt.count)
+            self.e_opt = OptState(m=take_rows(e_opt.m, self.idx), v=take_rows(e_opt.v, self.idx),
+                                  count=e_opt.count)
         self.coeffs = lazy_adam_coeffs(e_opt.count, self.n_batches, lr) if lazy else None
         self.stepped = []  # sparse SGD: each block's rows; lazy Adam: each block's (p, m, v)
         self._caught_up = None
 
+    def batch_index(self, s: int) -> torch.Tensor:
+        """Block ``s``'s rows of the data, ``(B,)`` or ``(K, B)``."""
+        return self.idx[..., s * self.bsz:(s + 1) * self.bsz]
+
     def rows(self, s: int) -> torch.Tensor:
-        lo, hi = s * self.bsz, (s + 1) * self.bsz
+        blk = slice(s * self.bsz, (s + 1) * self.bsz)
         if self.lazy:
-            self._caught_up = lazy_adam_catch_up(self.embp[lo:hi], self.e_opt.m[lo:hi],
-                                                 self.e_opt.v[lo:hi], s, self.coeffs)
+            self._caught_up = lazy_adam_catch_up(self.embp[..., blk, :], self.e_opt.m[..., blk, :],
+                                                 self.e_opt.v[..., blk, :], s, self.coeffs)
             return self._caught_up[0]
-        return self.embp[lo:hi]
+        return self.embp[..., blk, :]
+
+    def _keep(self, new, old):
+        """``new`` where the epoch is active, per config; else ``old``."""
+        if isinstance(self.active, bool):
+            return new if self.active else old
+        return torch.where(per_config(self.active, new.ndim), new, old)
 
     @torch.no_grad()
     def step(self, s: int, g_rows: torch.Tensor) -> None:
-        lo, hi = s * self.bsz, (s + 1) * self.bsz
+        blk = slice(s * self.bsz, (s + 1) * self.bsz)
         if self.kind == "sgd":
-            rows = self.embp[lo:hi]
-            self.stepped.append(rows - self.lr * g_rows if self.active else rows)
+            rows = self.embp[..., blk, :]
+            self.stepped.append(self._keep(rows - per_config(self.lr, rows.ndim) * g_rows, rows))
         elif self.lazy:
             p, m, v = self._caught_up
             self.stepped.append(lazy_adam_touch(p, m, v, g_rows, s, self.lr, self.coeffs))
         else:
             g_full = torch.zeros_like(self.embp)
-            g_full[lo:hi] = g_rows
+            g_full[..., blk, :] = g_rows
             self.embp, self.e_opt = opt_update(self.embp, g_full, self.e_opt, self.lr, None,
                                                self.active, kind="adam")
 
@@ -275,17 +337,20 @@ class PermutedEpoch:
         """``(embed, e_opt)`` after the epoch.  The pad rows (duplicates of
         row 0) are sliced off before the permutation is inverted, so a pad
         row never overwrites row 0's update."""
-        inv = torch.argsort(self.perm)
-        unperm = lambda t: t[:self.perm.numel()][inv]
+        inv = torch.argsort(self.perm, dim=-1)
+        n = self.perm.shape[-1]
+        unperm = lambda t: take_rows(t[..., :n, :], inv)
         if self.kind == "sgd":
-            return unperm(torch.cat(self.stepped)), self.e_opt
+            return unperm(torch.cat(self.stepped, dim=-2)), self.e_opt
         if self.lazy:
-            if not self.active:
+            if self.active is False:
                 return self.before
-            p, m, v = lazy_adam_epilogue(*(torch.cat(t) for t in zip(*self.stepped)),
+            p, m, v = lazy_adam_epilogue(*(torch.cat(t, dim=-2) for t in zip(*self.stepped)),
                                          self.n_batches, self.bsz, self.lr, self.coeffs)
-            return unperm(p), OptState(m=unperm(m), v=unperm(v),
-                                       count=self.e_opt.count + self.n_batches)
+            embed0, opt0 = self.before
+            return self._keep(unperm(p), embed0), OptState(
+                m=self._keep(unperm(m), opt0.m), v=self._keep(unperm(v), opt0.v),
+                count=self._keep(self.e_opt.count + self.n_batches, opt0.count))
         return unperm(self.embp), OptState(m=unperm(self.e_opt.m), v=unperm(self.e_opt.v),
                                            count=self.e_opt.count)
 
@@ -303,9 +368,10 @@ def init_fit_carry(init_embed: torch.Tensor, decoder_params, spec: LatentFitSpec
     checkpoints it between them."""
     kind = fit_kind(spec, hp)
     embed = init_embed.detach().to(torch.float32).clone()
+    n_cfg = embed.shape[0] if embed.ndim == 3 else None  # the config axis
     dec = start_fit_decoder(decoder_params, spec)
-    d_opt = init_opt_state(dec, kind) if spec.train_decoder else None
-    return embed, dec, init_opt_state(embed, kind), d_opt
+    d_opt = init_opt_state(dec, kind, n_cfg) if spec.train_decoder else None
+    return embed, dec, init_opt_state(embed, kind, n_cfg), d_opt
 
 
 def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: int, device,
@@ -322,21 +388,19 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
     valid = valid.reshape(n_batches, bsz)
     pad_idx = torch.zeros(pad, dtype=torch.long, device=device)
     lr = hp["lr"]
-    n_active = int(hp["n_epochs"])
     # hp["train_dec"] = 0 freezes the WHOLE decoder, norm included
     # (simplesif.py:55-56): the non-e2e freeze semantics
     dec_gate = hp["train_dec"] if "train_dec" in hp else None
 
     def epoch(carry, epoch_idx: int):
         embed, dec, e_opt, d_opt = carry
-        active = epoch_idx < n_active
+        active = epoch_active(epoch_idx, hp)
         perm = epoch_permutation(epoch_idx, n, spec, device, generator, perms)
         table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
         dec_gates = None if dec_gate is None else tree_map(lambda _: dec_gate, dec)
         batch_losses = []
         for s in range(n_batches):
-            lo, hi = s * bsz, (s + 1) * bsz
-            b = {k: v[table.idx[lo:hi]] for k, v in data.items()}
+            b = gather_batch(data, table.batch_index(s))
             if fused:
                 from mmtpu_torch.train.fused import fused_joint_step
 
@@ -350,7 +414,8 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
                     dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
                 loss = batch_neg_log_prob(rows, dec, b, vocab_emb, hp, spec, valid[s])
                 wrt = [rows] + (tree_leaves(dec) if spec.train_decoder else [])
-                grads = torch.autograd.grad(loss, wrt)
+                # per-config means summed: each config's gradient is its own
+                grads = torch.autograd.grad(loss.sum(), wrt)
                 g_rows = grads[0]
                 if spec.train_decoder:
                     dec = tree_map(torch.Tensor.detach, dec)
@@ -359,7 +424,7 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
             table.step(s, g_rows)
             batch_losses.append(loss.detach())
         embed, e_opt = table.finish()
-        return (embed, dec, e_opt, d_opt), torch.sum(torch.stack(batch_losses))
+        return (embed, dec, e_opt, d_opt), torch.sum(torch.stack(batch_losses), dim=0)
 
     return epoch
 
@@ -372,13 +437,13 @@ def fit_latents_segment(carry: tuple, data: Mapping, vocab_emb, hp: Mapping, spe
     ``losses`` ``(n_seg,)``.  ``perms`` holds every epoch of the fit (indexed
     by epoch); ``generator`` must be in the state that the uninterrupted fit
     reaches at ``epoch_start``."""
-    epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[0], carry[0].device,
+    epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[-2], carry[0].device,
                         generator, perms)
     losses = []
     for e in range(epoch_start, epoch_start + n_seg):
         carry, loss = epoch(carry, e)
         losses.append(loss)
-    return carry, torch.stack(losses)
+    return carry, torch.stack(losses, dim=-1)
 
 
 def make_inner_valid_spec(spec, valid_batch_mult: int) -> LatentFitSpec:
@@ -416,6 +481,12 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     ``losses`` is ``(n_epochs_max,)``: per-epoch sums of batch means.  Epochs
     at or past ``hp["n_epochs"]`` change nothing.
 
+    Under a config axis (the sweep's chunk): ``init_embed`` is ``(K, N,
+    D)``, the decoder's leaves lead with K, the hp values are ``(K,)``
+    tensors (``n_epochs`` included, read on the device), each entry of
+    ``perms`` is ``(K, N)``, and ``losses`` is ``(K, n_epochs_max)``.  The
+    spec's ``opt_kind`` must be set.
+
     hp: ``lr`` and ``word_loss_weight`` (floats or 0-d float32 tensors),
     ``norm_code`` (int or 0-d tensor), ``opt_code`` and ``n_epochs`` (ints).
 
@@ -436,7 +507,7 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     if validation is not None and spec.valid_every > 0:
         inner_spec = make_inner_valid_spec(spec, spec.valid_batch_mult)
     carry = init_fit_carry(init_embed, decoder_params, spec, hp)
-    epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[0], carry[0].device,
+    epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[-2], carry[0].device,
                         generator, perms)
     losses, curve = [], []
     for e in range(spec.n_epochs_max):
@@ -445,7 +516,8 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
         if inner_spec is not None:
             curve.append(valid_curve_entry(e, spec, validation, carry[1], vocab_emb, hp,
                                            inner_spec))
-    out = carry[0], finish_fit_decoder(carry[1], data, spec, was_stacked), torch.stack(losses)
+    out = (carry[0], finish_fit_decoder(carry[1], data, spec, was_stacked),
+           torch.stack(losses, dim=-1))
     if inner_spec is None:
         return out
     curve.append(valid_fit_loss(validation, carry[1], vocab_emb, hp, inner_spec))

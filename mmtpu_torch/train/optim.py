@@ -17,6 +17,11 @@ steps before its forward, :func:`lazy_adam_touch` its real step, and
 :func:`lazy_adam_epilogue`, once per epoch, every block's remaining steps.
 The values are dense Adam's up to float rounding (``beta**k`` by ``pow``, a
 summed subtraction in place of ``k`` separate ones).
+
+Under the sweep's config axis every leaf has a leading ``(K,)`` axis, and
+``lr``, ``active``, the gates and the step count are ``(K,)`` tensors, each
+viewed to a leaf's rank (:func:`mmtpu_torch.tree.per_config`): config k
+steps with its own rate and only when its own mask is on.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from mmtpu_torch.tree import tree_map
+from mmtpu_torch.tree import per_config, tree_map
 
 OPT_SGD = 0
 OPT_ADAM = 1
@@ -50,9 +55,11 @@ def _device_of(params) -> torch.device:
     return leaf.device
 
 
-def init_opt_state(params, kind: str | None = None) -> OptState:
-    """Moment buffers for Adam (and for ``kind=None``); none for ``"sgd"``."""
-    count = torch.zeros((), dtype=torch.int32, device=_device_of(params))
+def init_opt_state(params, kind: str | None = None, n_configs: int | None = None) -> OptState:
+    """Moment buffers for Adam (and for ``kind=None``); none for ``"sgd"``.
+    With ``n_configs`` the step count is one per config."""
+    shape = () if n_configs is None else (n_configs,)
+    count = torch.zeros(shape, dtype=torch.int32, device=_device_of(params))
     if kind == "sgd":
         return OptState(m=None, v=None, count=count)
     return OptState(m=tree_map(torch.zeros_like, params),
@@ -62,12 +69,12 @@ def init_opt_state(params, kind: str | None = None) -> OptState:
 def _select(active, new, old):
     if isinstance(active, bool):
         return new if active else old
-    return torch.where(active, new, old)
+    return torch.where(per_config(active, new.ndim), new, old)
 
 
 def _gated(active, gate):
     """``active and gate > 0``: a bool while both are Python values, else a
-    0-d bool tensor."""
+    bool tensor (0-d, or ``(K,)`` per config)."""
     if isinstance(gate, torch.Tensor):
         on = gate > 0
         return on if active is True else on & torch.as_tensor(active, device=on.device)
@@ -84,7 +91,8 @@ def opt_update(params, grads, state: OptState, lr, opt_code, active=True,
     ``kind`` ("sgd" | "adam") fixes the law; without it ``opt_code``
     (``OPT_SGD`` | ``OPT_ADAM``) picks it.  ``active`` is a bool or a 0-d
     bool tensor; when false, parameters, moments and the count stay.
-    ``lr`` is a float or a 0-d float32 tensor.  ``gates``, a tree like
+    ``lr`` is a float or a 0-d float32 tensor.  Under a config axis ``lr``,
+    ``active``, the gates and ``state.count`` are ``(K,)``.  ``gates``, a tree like
     ``params`` of 0/1 scalars (numbers or 0-d tensors), freezes each leaf
     whose gate is 0: neither the parameter nor its moments move, as for a
     torch parameter with ``requires_grad=False``.  The count advances with
@@ -96,8 +104,9 @@ def opt_update(params, grads, state: OptState, lr, opt_code, active=True,
     if gates is None:
         gates = tree_map(lambda _: 1.0, params)
     if kind == "sgd":
-        new_params = tree_map(lambda p, g, gt: _select(_gated(active, gt), p - lr * g, p),
-                              params, grads, gates)
+        new_params = tree_map(
+            lambda p, g, gt: _select(_gated(active, gt), p - per_config(lr, p.ndim) * g, p),
+            params, grads, gates)
         return new_params, OptState(m=None, v=None, count=new_count)
     if kind != "adam":
         raise NotImplementedError(f"optimizer kind {kind!r}")
@@ -109,7 +118,8 @@ def opt_update(params, grads, state: OptState, lr, opt_code, active=True,
         on = _gated(active, gt)
         m2 = _B1 * m + (1.0 - _B1) * g
         v2 = _B2 * v + (1.0 - _B2) * torch.square(g)
-        p2 = p - lr * (m2 / bc1) / (torch.sqrt(v2 / bc2) + _EPS)
+        b1, b2 = per_config(bc1, p.ndim), per_config(bc2, p.ndim)
+        p2 = p - per_config(lr, p.ndim) * (m2 / b1) / (torch.sqrt(v2 / b2) + _EPS)
         return _select(on, p2, p), _select(on, m2, m), _select(on, v2, v)
 
     out = tree_map(leaf, params, grads, state.m, state.v, gates)
@@ -119,16 +129,17 @@ def opt_update(params, grads, state: OptState, lr, opt_code, active=True,
 
 def lazy_adam_coeffs(count0: torch.Tensor, n_steps: int, lr):
     """Per-epoch coefficients of the lazy-Adam closed forms, each ``(n_steps,)``
-    (entry ``j-1`` is epoch step ``j``, global step ``count0 + j``):
+    (``(K, n_steps)`` for a ``(K,)`` count and rate; entry ``j-1`` is epoch
+    step ``j``, global step ``count0 + j``):
     ``(A1, A2, bc1, bc2)`` with ``A1 = lr * beta1**j / bc1`` and
     ``A2 = beta2**j / bc2``, so that the zero-gradient step ``j`` moves a
     parameter by ``A1 * m0 / (sqrt(A2 * v0) + eps)``.  Powers and bias
     corrections in float32 on ``count0``'s device, as mmtpu's."""
     j = torch.arange(1, n_steps + 1, dtype=torch.float32, device=count0.device)
-    t = count0.to(torch.float32) + j
+    t = per_config(count0.to(torch.float32), 2) + j
     bc1 = 1.0 - torch.pow(_B1, t)
     bc2 = 1.0 - torch.pow(_B2, t)
-    return lr * torch.pow(_B1, j) / bc1, torch.pow(_B2, j) / bc2, bc1, bc2
+    return per_config(lr, 2) * torch.pow(_B1, j) / bc1, torch.pow(_B2, j) / bc2, bc1, bc2
 
 
 @torch.no_grad()
@@ -137,7 +148,8 @@ def lazy_adam_catch_up(p0, m0, v0, s: int, coeffs):
     epoch (``s = 0``: unchanged)."""
     if s == 0:
         return p0, m0, v0
-    a1, a2 = coeffs[0][:s, None, None], coeffs[1][:s, None, None]
+    # (s, [K,] 1, 1): the pending steps lead, against (..., B, D) blocks
+    a1, a2 = (c[..., :s].movedim(-1, 0)[..., None, None] for c in coeffs[:2])
     p_s = p0 - torch.sum(a1 * m0 / (torch.sqrt(a2 * v0) + _EPS), dim=0)
     sf = torch.tensor(float(s), device=p0.device)
     return p_s, torch.pow(_B1, sf) * m0, torch.pow(_B2, sf) * v0
@@ -147,34 +159,37 @@ def lazy_adam_catch_up(p0, m0, v0, s: int, coeffs):
 def lazy_adam_touch(p_s, m_s, v_s, g, s: int, lr, coeffs):
     """The block's real Adam step at epoch step index ``s`` (0-based; global
     step ``count0 + s + 1``), :func:`opt_update`'s law."""
-    bc1, bc2 = coeffs[2][s], coeffs[3][s]
+    nd = p_s.ndim
+    bc1, bc2 = per_config(coeffs[2][..., s], nd), per_config(coeffs[3][..., s], nd)
     m2 = _B1 * m_s + (1.0 - _B1) * g
     v2 = _B2 * v_s + (1.0 - _B2) * torch.square(g)
-    return p_s - lr * (m2 / bc1) / (torch.sqrt(v2 / bc2) + _EPS), m2, v2
+    return p_s - per_config(lr, nd) * (m2 / bc1) / (torch.sqrt(v2 / bc2) + _EPS), m2, v2
 
 
 @torch.no_grad()
 def lazy_adam_epilogue(p, m, v, n_steps: int, bsz: int, lr, coeffs):
     """Every block's remaining ``S-1-s`` zero-gradient steps, once per epoch.
 
-    ``p, m, v`` are the permuted ``(S*B, D)`` tables after the epoch's steps:
-    block ``s`` (rows ``[s*B, (s+1)*B)``) holds its just-stepped state.  The
-    ``K = S-1`` decay offsets are added one ``(S, B, D)`` pass at a time
-    (offset ``k`` reaches blocks ``s < S-k``), so nothing ``K``-sized is
-    materialised at table scale."""
+    ``p, m, v`` are the permuted ``(S*B, D)`` tables after the epoch's steps
+    (``(K, S*B, D)`` under a config axis): block ``s`` (rows ``[s*B,
+    (s+1)*B)``) holds its just-stepped state.  The ``S-1`` decay offsets are
+    added one ``(S, B, D)`` pass at a time (offset ``k`` reaches blocks ``s <
+    S-k``), so nothing ``S``-fold is materialised at table scale."""
     S, B = n_steps, bsz
     if S <= 1:
         return p, m, v
     bc1, bc2 = coeffs[2], coeffs[3]
-    D = p.shape[-1]
-    mb, vb = m.reshape(S, B, D), v.reshape(S, B, D)
+    lead, D = p.shape[:-2], p.shape[-1]
+    mb, vb = m.reshape(*lead, S, B, D), v.reshape(*lead, S, B, D)
     k = torch.arange(1, S, dtype=torch.float32, device=p.device)
     b1k, b2k = torch.pow(_B1, k), torch.pow(_B2, k)
+    lr = per_config(lr, 2)
     delta = torch.zeros_like(mb)
     for i in range(1, S):  # offset k = i: block s's step s + i, for s < S - i
-        c1 = (lr * b1k[i - 1] / bc1[i:])[:, None, None]
-        c2 = (b2k[i - 1] / bc2[i:])[:, None, None]
-        delta[:S - i] += c1 * mb[:S - i] / (torch.sqrt(c2 * vb[:S - i]) + _EPS)
+        c1 = (lr * b1k[i - 1] / bc1[..., i:])[..., None, None]
+        c2 = (b2k[i - 1] / bc2[..., i:])[..., None, None]
+        delta[..., :S - i, :, :] += c1 * mb[..., :S - i, :, :] / (
+            torch.sqrt(c2 * vb[..., :S - i, :, :]) + _EPS)
     rest = torch.arange(S - 1, -1, -1, dtype=torch.float32, device=p.device)[:, None, None]
-    return (p - delta.reshape(S * B, D), (torch.pow(_B1, rest) * mb).reshape(S * B, D),
-            (torch.pow(_B2, rest) * vb).reshape(S * B, D))
+    flat = lambda t: t.reshape(*lead, S * B, D)
+    return (p - flat(delta), flat(torch.pow(_B1, rest) * mb), flat(torch.pow(_B2, rest) * vb))
