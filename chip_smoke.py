@@ -56,13 +56,35 @@ Phases, in order; any failure raises and the exit code is not 0:
    and 1e-3) run alone through the single-config fits with the same draws
    and held to the chunk's results (embeddings at lr 1e-4 only: see the
    phase's code); diverged configs reported, the others finite; the phases'
-   wall seconds, the training rate and the peak memory printed.
+   wall seconds, the training rate and the peak memory printed;
+11. the fused sweep chunks: phase 10's Adam configs through ``run_chunk``
+   with ``fused_dec_update`` (held to phase 10's dense chunk), and the first
+   32 configs of the grid's SGD / 100-epoch bucket (layer norm, lr 1e-4: the
+   grid's SGD configs diverge at this width, as in phase 4) without and with
+   it; K2 launched twice per
+   train step for the whole chunk (84 of the chunk's kind), K1 as in the
+   dense chunk; the fused chunk held to the dense one (final loss rtol 2e-4,
+   test predictions atol 5e-4, embeddings atol 2e-4 for SGD; for Adam, per
+   config, at most 1e-4 of the coordinates above 2e-4 and none above 8 lr:
+   see ``ADAM_EMB_OVER_SHARE``); the train phase's rates side by side
+   (printed, not claimed);
+12. the whole sweep: ``python -m mmtpu_torch.sweep mosi`` in a subprocess
+   at full MOSI width, ``--fused_dec``, 16 grid configs over both optimizers
+   and both epoch counts (cut 100 -> 1 and 200 -> 2 epochs, sentiment
+   epochs 400 -> 10) in chunks of 8 with ``--resume_dir``, its kernel
+   launches counted in that process; then one chunk's entry taken out of
+   ``sweep_state.json`` and the command run again: it computes that chunk
+   only, and its CSV equals the first run's bit for bit.
 
-Phases 8, 9 and 10 run inside the temporary directory of phases 4-6, before
-phase 7.  Around each path of phases 4-6 and 8-10 the kernel launch counts
-are set to 0 just before and read just after.  The line before the last is
-the kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or without the rest of the repository beside it, the script exits
+Phase 3 also holds K2 with the config axis (``K2_BATCHED_SHAPES``, per-config
+lr, bias corrections and flag, one config at flag 0) to its plain version and
+times it at the fused chunk's shape, beside 32 2-D calls, one per config slice
+of the same inputs, timed as one burst.  Phases 8-12 run inside the temporary
+directory of phases 4-6, before phase 7.  Around each path of phases 4-6 and
+8-12 the kernel launch counts are set to 0 just before and read just after
+(phase 12's in its own process).  The line before the last is the kernels'
+JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the rest of the repository beside it, the script exits
 non-zero and prints no result.
 """
 
@@ -91,6 +113,9 @@ GRAD_MAX_REL, GRAD_ATOL = 1e-3, 1e-5
 K2_SHAPES = [(64, 300, 1400), (64, 300, 1536), (512, 300, 1416), (37, 300, 37),
              (33, 300, 1401)]
 K2_RTOL, K2_ATOL, K2_GX_MAX_REL = 1e-5, 1e-5, 1e-5  # the TPU kernel's tests
+# (K, B, D, F) of K2 with the config axis: the sweep's fused chunk (32
+# configs, the train batch, the stacked MOSI head width) and ragged shapes
+K2_BATCHED_SHAPES = [(32, 64, 300, 1400), (3, 37, 300, 37), (2, 33, 300, 1401)]
 N_EPOCHS, N_SENTIMENT_EPOCHS = 3, 10
 STEPS_PER_EPOCH = -(-1284 // 64)
 # one NVIDIA H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet)
@@ -111,6 +136,22 @@ RESUME_RTOL, RESUME_ATOL = 0.0, 0.0
 # the CPU parity tests' (loss rtol, embeddings and predictions atol)
 SWEEP_K, SWEEP_EPOCHS, SWEEP_SENTIMENT_EPOCHS = 32, 2, 10
 SWEEP_RTOL, SWEEP_ATOL = 2e-4, 2e-4
+# phase 11: a fused chunk's test predictions against the dense chunk's, at
+# mmtpu's own fused tolerance (tests/test_fused_update.py:196-200)
+FUSED_PRED_ATOL = 5e-4
+# phase 11, an Adam chunk's embeddings, fused against dense: Adam's first
+# step moves a coordinate by lr x sign(g), so where a gradient component is
+# within rounding of zero the two float orders of the decoder's products
+# (K2's against cuBLAS's) move that coordinate apart by a few lr, at either
+# learning rate (on the card: one coordinate of 21.1 million at lr 1e-4, by
+# 2.95e-4; 1-14 per config at lr 1e-3, by up to 3.34e-3; PERF.md section
+# 6).  Each config is held to: at most this share of its coordinates
+# above SWEEP_ATOL, and none further than this many lr.  The limit lies
+# between the largest sound reading, 3.34 lr, and a planted per-config lr
+# fault's 19.7 lr (456,632 coordinates per config), a factor of about 2.4
+# from each.  SGD has no such step: an SGD chunk's embeddings are held at
+# SWEEP_ATOL everywhere.
+ADAM_EMB_OVER_SHARE, ADAM_EMB_MAX_LR = 1e-4, 8.0
 
 
 def log(msg: str) -> None:
@@ -303,8 +344,65 @@ def compare_k2(kind: str, got, want, t: dict, on: float, where) -> tuple:
     return worst, gx_abs, gx_rel
 
 
+def _k2_batched_case(torch, dev, gen, k, b, d, f, flag_last: float):
+    """Inputs of one K2 call with the config axis: as ``_k2_case`` per
+    config, with per-config lr (1e-3 to 3e-3), bias corrections (step
+    counts 1 to K) and flag (1, the last config's ``flag_last``), all on the
+    card."""
+    r = lambda *s: torch.randn(*s, generator=gen)
+    t = {"w": 0.05 * r(k, d, f), "m": 0.1 * r(k, d, f), "v": 0.01 * (1.0 + r(k, d, f).abs()),
+         "x": r(k, b, d), "g_z": r(k, b, f) / b ** 0.5}
+    count = torch.arange(1, k + 1, dtype=torch.float32)
+    flag = torch.ones(k)
+    flag[-1] = flag_last
+    t.update(lr=1e-3 * (1.0 + torch.arange(k) % 3), bc1=1.0 - 0.9 ** count,
+             bc2=1.0 - 0.999 ** count, flag=flag)
+    return {k_: a.to(dev) for k_, a in t.items()}
+
+
+def _k2_sliced(T, t: dict, k: int) -> dict:
+    """Per kind, one function that makes ``k`` 2-D K2 calls, one per config
+    slice of the config axis's inputs ``t`` (the same work as one batched
+    call, in ``k`` launches)."""
+    calls = [_k2_calls(T, s, s["flag"]) for s in ({n: a[i] for n, a in t.items()}
+                                                  for i in range(k))]
+    return {kind: (lambda kind=kind: [c[kind]["kernel"]() for c in calls])
+            for kind in ("adam", "sgd")}
+
+
+def check_k2_batched(torch, T, dev, err: dict) -> None:
+    """Phase 3, the config axis: K2 against its plain version at
+    ``K2_BATCHED_SHAPES``, each config held to ``compare_k2``'s gates (the
+    last one at flag 0, its tables bit for bit), one launch per call, two
+    calls bit for bit equal."""
+    gen = torch.Generator().manual_seed(2)
+    for k, b, d, f in K2_BATCHED_SHAPES:
+        t = _k2_batched_case(torch, dev, gen, k, b, d, f, flag_last=0.0)
+        for kind, fns in _k2_calls(T, t, t["flag"]).items():
+            before = T.LAUNCHES[kind]
+            got, want = fns["kernel"](), fns["plain"]()
+            launches = T.LAUNCHES[kind] - before
+            same = all(torch.equal(a, g) for a, g in zip(fns["kernel"](), got))
+            torch.cuda.synchronize()
+            worst = gx_rel = 0.0
+            for i in range(k):
+                errs = compare_k2(kind, [g[i] for g in got], [w_[i] for w_ in want],
+                                  {n: t[n][i] for n in ("w", "m", "v")}, float(t["flag"][i]),
+                                  (k, b, d, f, i))
+                worst, gx_rel = max(worst, errs[0], errs[1]), max(gx_rel, errs[2])
+            err[kind] = max(err[kind], worst)
+            log(f"[k2] {kind} K={k} B={b} D={d} F={f} (config {k - 1} at flag 0): max abs "
+                f"{worst:.3e}, g_x max-rel {gx_rel:.3e}; {launches} launch(es); repeat "
+                f"bit-equal {same}")
+            if launches != 1:
+                raise AssertionError(f"one batched K2-{kind} call launched {launches} times")
+            if not same:
+                raise AssertionError(f"K2-{kind} differs between two calls at {(k, b, d, f)}")
+
+
 def check_k2(torch, T, dev) -> dict:
-    """Phase 3: K2 (Adam and SGD) vs its plain versions; errors, times, bounds."""
+    """Phase 3: K2 (Adam and SGD) vs its plain versions, without and with
+    the config axis; errors, times, bounds."""
     gen = torch.Generator().manual_seed(1)
     err = {"adam": 0.0, "sgd": 0.0}
     for b, d, f in K2_SHAPES:
@@ -324,12 +422,20 @@ def check_k2(torch, T, dev) -> dict:
                 if not same:
                     raise AssertionError(f"K2-{kind} differs between two calls at {(b, d, f)}")
 
+    check_k2_batched(torch, T, dev, err)
+
     times, bounds = {}, {}
+    # the sweep's fused shape, every config at flag 1 (the whole step's work)
+    kb, bb, db, fb = K2_BATCHED_SHAPES[0]
+    tb = _k2_batched_case(torch, dev, gen, kb, bb, db, fb, flag_last=1.0)
+    batched, sliced = _k2_calls(T, tb, tb["flag"]), _k2_sliced(T, tb, kb)
     for b, d, f in ((64, 300, 1400), (512, 300, 1416)):
         t = _k2_case(torch, dev, gen, b, d, f)
         fns = _k2_calls(T, t, torch.tensor(1.0, device=dev))
-        if b == 64:
-            counts = _k2_device_kernels(torch, {k: fns[k]["kernel"] for k in ("adam", "sgd")})
+        if b == 64:  # one profiler session for the 2-D and the batched calls
+            counts = _k2_device_kernels(torch, {
+                **{k: fns[k]["kernel"] for k in ("adam", "sgd")},
+                **{f"{k}_k{kb}": batched[k]["kernel"] for k in ("adam", "sgd")}})
             for kind, n in counts.items():
                 log(f"[k2] {kind} B={b}: one call issues {n} CUDA kernel(s) (torch.profiler)")
                 if n != 1:
@@ -346,6 +452,17 @@ def check_k2(torch, T, dev) -> dict:
                 f"plain {tk['plain']:.4f}; one call ms kernel {calls['kernel']:.4f} "
                 f"plain {calls['plain']:.4f}; bound {bk[0]:.5f} ms ({bk[1]}: "
                 f"{ops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+    for kind in ("adam", "sgd"):
+        tk = {k: _device_ms(torch, fn, reps=30) for k, fn in batched[kind].items()}
+        tk["sliced"] = _device_ms(torch, sliced[kind], reps=10)
+        times[kind][f"k{kb}"] = tk
+        tables = 3 if kind == "adam" else 1
+        ops = kb * (4 * bb * db * fb + K2_ELEMENTWISE_OPS[kind] * db * fb)
+        nbytes = 4 * kb * (2 * tables * db * fb + bb * fb + 2 * bb * db)
+        bk = bounds[kind][f"k{kb}"] = bound_ms(ops, nbytes)
+        log(f"[k2] {kind} K={kb} B={bb} D={db} F={fb}: device ms kernel {tk['kernel']:.4f} "
+            f"plain {tk['plain']:.4f}; {kb} 2-D calls, one per config slice, "
+            f"{tk['sliced']:.4f}; bound {bk[0]:.5f} ms ({bk[1]}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
     return {"err": err, "times": times, "bounds": bounds}
 
 
@@ -813,7 +930,232 @@ def run_sweep_chunk(torch, K, T, tmp: str) -> dict:
         k1["bounds"][b] = _k1_bounds(b)
     return {"launches": launches, "wall_s": wall, "phase_s": chunk.phase_s,
             "peak_gib": peak_gib, "rate": rate, "single_rate": single, "parity": parity,
-            "diverged": chunk.config_nums[chunk.diverged].tolist(), "k1": k1}
+            "diverged": chunk.config_nums[chunk.diverged].tolist(), "k1": k1,
+            "result": chunk}
+
+
+def sgd_sweep_configs() -> list:
+    """The first ``SWEEP_K`` configs of the grid's SGD / 100-epoch bucket, cut
+    as ``sweep_configs``, with layer norm and lr 1e-4: as the grid has them
+    (batch norm or lr 1e-3) SGD configs diverge at MOSI width (phase 4)."""
+    from mmtpu_torch.config import make_grid
+
+    bucket = [c for c in make_grid() if c["optimizer"] == "sgd" and c["n_epochs"] == 100]
+    return [dict(c, n_epochs=SWEEP_EPOCHS, n_sentiment_epochs=SWEEP_SENTIMENT_EPOCHS,
+                 norm="layer_norm", lr=1e-4) for c in bucket[:SWEEP_K]]
+
+
+def run_fused_chunks(torch, K, T, tmp: str, dense_adam: dict) -> dict:
+    """Phase 11: the sweep chunk with the fused decoder update
+    (``run_chunk(..., fused_dec_update=True)``) beside the same chunk
+    without it: phase 10's Adam configs, held to phase 10's dense chunk
+    ``dense_adam`` (the same configs, data and options), and the SGD configs
+    of ``sgd_sweep_configs``.  K2 twice per train step for the whole chunk, K1
+    as in the dense chunk; each fused chunk held to its dense chunk (final
+    loss rtol 2e-4, test predictions atol 5e-4; embeddings atol 2e-4 for
+    SGD, and for Adam per config at most ``ADAM_EMB_OVER_SHARE`` of the
+    coordinates above 2e-4 and none above ``ADAM_EMB_MAX_LR`` lr, for the
+    reason given there); the train phase's rates side by side (printed, not
+    claimed)."""
+    return {"adam": fused_chunk(torch, K, T, tmp, "adam", sweep_configs(),
+                                (dense_adam["result"], dense_adam["launches"])),
+            "sgd": fused_chunk(torch, K, T, tmp, "sgd", sgd_sweep_configs())}
+
+
+def fused_chunk(torch, K, T, tmp: str, kind: str, configs: list, dense=None) -> dict:
+    """Phase 11 for one optimizer's configs: the chunk with the fused
+    decoder update against the chunk without it (``dense``, a result and
+    its launch counts, where the caller has it; else run here), their
+    launches, agreement and rates."""
+    import numpy as np
+
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.sweep.runner import run_chunk
+
+    dev = torch.device("cuda", 0)
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")),
+                               pos_mode="shared", pos_dims=dims)
+    n_train, k = prep.sif_init["train"].shape[0], len(configs)
+    steps = SWEEP_EPOCHS * -(-n_train // 64)
+    res, launches = {}, {}
+    if dense is not None:
+        res[False], launches[False] = dense
+    for fused in [f for f in (False, True) if f not in res]:
+        _reset_launches(K, T)
+        res[fused] = run_chunk(configs, prep, batch_size=64, device=dev,
+                               return_embeddings=True, fused_dec_update=fused)
+        launches[fused] = _read_launches(K, T)
+    dense, fused = res[False], res[True]
+    want_k2 = {f"k2_{kk}": 2 * steps if kk == kind else 0 for kk in ("adam", "sgd")}
+    got_k2 = {kk: launches[True][kk] for kk in want_k2}
+    if got_k2 != want_k2 or any(launches[False][kk] for kk in want_k2):
+        raise AssertionError(f"K2 launches: fused chunk {got_k2}, expected {want_k2}; "
+                             f"dense chunk {launches[False]}")
+    for kk in ("k1_fwd", "k1_bwd"):
+        if launches[True][kk] != launches[False][kk] or not launches[True][kk]:
+            raise AssertionError(f"{kk}: fused chunk {launches[True][kk]}, dense "
+                                 f"{launches[False][kk]}")
+    if not np.array_equal(fused.diverged, dense.diverged) or dense.diverged.all():
+        raise AssertionError(f"diverged configs differ: fused {fused.diverged}, dense "
+                             f"{dense.diverged}")
+    ok = ~dense.diverged
+    loss_rel = float(np.max(np.abs(fused.final_train_loss[ok] - dense.final_train_loss[ok])
+                            / np.abs(dense.final_train_loss[ok])))
+    pred_abs = float(np.abs(fused.predictions[ok] - dense.predictions[ok]).max())
+    emb_abs = {lr: 0.0 for lr in sorted({c["lr"] for c in configs})}
+    emb_over, bad = 0, []
+    for i in np.nonzero(ok)[0]:  # each config's embeddings, all three splits
+        c = configs[i]
+        d = np.concatenate([np.abs(fused.embeddings[s][i] - dense.embeddings[s][i])
+                            for s in ("train", "valid", "test")])
+        over = int((d > SWEEP_ATOL).sum())
+        emb_abs[c["lr"]], emb_over = max(emb_abs[c["lr"]], float(d.max())), emb_over + over
+        if over:
+            log(f"[fused-sweep] {kind} config {c['config_num']} ({c['norm']}, lr {c['lr']}): "
+                f"{over} of {d.size} embedding coordinates above {SWEEP_ATOL}, in "
+                f"{int((d.max(-1) > SWEEP_ATOL).sum())} rows; max {float(d.max()):.3e} "
+                f"({float(d.max()) / c['lr']:.2f} lr)")
+        if kind == "sgd" and over or kind == "adam" and (
+                over > ADAM_EMB_OVER_SHARE * d.size or d.max() > ADAM_EMB_MAX_LR * c["lr"]):
+            bad.append(c["config_num"])
+    rates = {f: k * n_train * SWEEP_EPOCHS / res[f].phase_s["train"] for f in res}
+    log(f"[fused-sweep] {kind} chunk of {k} ({int(ok.sum())} finite): K2 launches "
+        f"{got_k2} ({steps} train steps), K1 {launches[True]['k1_fwd']} of each kind as "
+        f"the dense chunk; fused against dense: final loss max rel {loss_rel:.3e}, "
+        f"predictions max abs {pred_abs:.3e}, embeddings max abs by lr {emb_abs} "
+        f"({emb_over} coordinates above {SWEEP_ATOL} in all); train phase s dense "
+        f"{dense.phase_s['train']:.3f} fused {fused.phase_s['train']:.3f}; "
+        f"config-utterance-epochs/s dense {rates[False]:.1f} fused {rates[True]:.1f} "
+        f"(printed, not claimed)")
+    if not (loss_rel < SWEEP_RTOL and pred_abs < FUSED_PRED_ATOL) or bad:
+        raise AssertionError(f"the fused {kind} chunk disagrees with the dense one (embeddings "
+                             f"outside the gate in configs {bad})")
+    return {"launches": launches[True], "loss_rel": loss_rel, "pred_abs": pred_abs,
+            "emb_abs_by_lr": {str(lr): v for lr, v in emb_abs.items()},
+            "emb_over_atol": emb_over, "rate_dense": rates[False], "rate_fused": rates[True],
+            "train_s_dense": dense.phase_s["train"], "train_s_fused": fused.phase_s["train"]}
+
+
+# runs `python -m mmtpu_torch.sweep <args>` and prints the kernel launch
+# counts of that process on its last line
+_SWEEP_CLI = """
+import json, runpy, sys
+import mmtpu_torch.kernels.angular as K
+import mmtpu_torch.kernels.decoder_update as T
+sys.argv = ["mmtpu_torch.sweep"] + sys.argv[1:]
+try:
+    runpy.run_module("mmtpu_torch.sweep", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"rc": rc, "k1_fwd": K.LAUNCHES["fwd"], "k1_bwd": K.LAUNCHES["bwd"],
+                  "k2_adam": T.LAUNCHES["adam"], "k2_sgd": T.LAUNCHES["sgd"]}))
+sys.exit(rc or 0)
+"""
+
+
+def cli_sweep_configs() -> list:
+    """Phase 12's grid: ten configs of the grid's Adam / 100-epoch bucket and
+    two of each other (optimizer, n_epochs) bucket, epochs cut 100 -> 1 and
+    200 -> 2, sentiment epochs 400 -> ``SWEEP_SENTIMENT_EPOCHS``."""
+    from mmtpu_torch.config import make_grid
+
+    take = {("adam", 100): 10, ("adam", 200): 2, ("sgd", 100): 2, ("sgd", 200): 2}
+    out = []
+    for c in make_grid():
+        key = (c["optimizer"], c["n_epochs"])
+        if take.get(key, 0) > 0:
+            take[key] -= 1
+            out.append(dict(c, n_epochs=c["n_epochs"] // 100,
+                            n_sentiment_epochs=SWEEP_SENTIMENT_EPOCHS))
+    return out
+
+
+def run_cli_sweep(torch, tmp: str) -> dict:
+    """Phase 12: ``python -m mmtpu_torch.sweep mosi`` in a subprocess on the
+    synthetic MOSI blobs at full width, ``--fused_dec``, 16 configs in
+    chunks of 8 with a resume directory; then one chunk's entry taken out of
+    ``sweep_state.json`` and the command run again: it computes that chunk
+    only, and its CSV equals the first run's bit for bit."""
+    import csv
+
+    configs = cli_sweep_configs()
+    cfg_dir, out_dir = os.path.join(tmp, "cli_cfgs"), os.path.join(tmp, "cli_results")
+    resume = os.path.join(tmp, "cli_resume")
+    os.makedirs(cfg_dir, exist_ok=True)
+    for c in configs:
+        with open(os.path.join(cfg_dir, f"config_{c['config_num']}.json"), "w") as f:
+            json.dump(c, f)
+    argv = ["mosi", "--configs_dir", cfg_dir, "--limit", str(len(configs)), "--chunk_size",
+            "8", "--resume_dir", resume, "--fused_dec", "--phase_timing", "--device", "cuda",
+            "--data_dir", os.path.join(tmp, "data"), "--out", out_dir, "--name", "cli"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def run(tag):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _SWEEP_CLI, *argv], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the sweep CLI ({tag}) exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        launches = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(os.path.join(out_dir, "cli_summary.json")) as f:
+            summary = json.load(f)
+        with open(os.path.join(out_dir, "cli.csv"), "rb") as f:
+            table = f.read()
+        return {"wall_s": wall, "launches": launches, "summary": summary, "csv": table}
+
+    first = run("first")
+    chunks = [c["chunk"] for c in first["summary"]["chunks"]]
+    n_train, n_valid, n_test = 1284, 229, 686
+    epochs = {cid: int(cid.split("_")[0][len(kind):]) for cid, kind in
+              ((c["chunk"], c["kind"]) for c in first["summary"]["chunks"])}
+    per_epoch_k1 = -(-n_train // 64) + -(-n_valid // 512) + -(-n_test // 512)
+    want = {"k1_fwd": sum(epochs.values()) * per_epoch_k1}
+    want["k1_bwd"] = want["k1_fwd"]
+    for kind in ("adam", "sgd"):
+        want[f"k2_{kind}"] = sum(2 * ne * -(-n_train // 64) for cid, ne in epochs.items()
+                                 if cid.startswith(kind))
+    got = {k: first["launches"][k] for k in want}
+    rows = list(csv.DictReader(first["csv"].decode().splitlines()))
+    finite = sum(all(r[m] not in ("nan", "") for m in ("final_train_loss", "mae", "corr"))
+                 for r in rows)
+    log(f"[cli-sweep] python -m mmtpu_torch.sweep: {len(rows)} rows ({finite} finite), chunks "
+        f"{chunks}, wall {first['wall_s']:.1f} s (summary wall "
+        f"{first['summary']['wall_time_s']} s, kernel build "
+        f"{first['summary']['compile_time_s']} s); launches {got}")
+    if chunks != ["adam1_0", "adam1_1", "adam2_0", "sgd1_0", "sgd2_0"]:
+        raise AssertionError(f"the CLI sweep ran chunks {chunks}")
+    if got != want:
+        raise AssertionError(f"the CLI sweep launched {got}, expected {want}")
+    if len(rows) != len(configs) or finite == 0:
+        raise AssertionError(f"the CLI sweep's CSV has {len(rows)} rows, {finite} finite")
+
+    state_path = os.path.join(resume, "sweep_state.json")
+    with open(state_path) as f:
+        state = json.load(f)
+    dropped = "adam1_1"
+    state["chunks"].remove(dropped)
+    with open(state_path, "w") as f:
+        json.dump(state, f)
+    again = run("resumed")
+    redone = [c["chunk"] for c in again["summary"]["chunks"]]
+    same = again["csv"] == first["csv"]
+    log(f"[cli-sweep] resumed without {dropped}: computed {redone}, launches "
+        f"{ {k: again['launches'][k] for k in want} }, wall {again['wall_s']:.1f} s; CSV "
+        f"bit-equal {same}")
+    if redone != [dropped] or again["launches"]["k2_adam"] != 2 * -(-n_train // 64):
+        raise AssertionError(f"the resumed CLI sweep computed {redone}, launches "
+                             f"{again['launches']}")
+    if not same:
+        raise AssertionError("the resumed CLI sweep's CSV differs from the first run's")
+    return {"launches": got, "launches_resumed": {k: again["launches"][k] for k in want},
+            "chunks": chunks, "rows": len(rows), "finite_rows": finite,
+            "wall_s": first["wall_s"], "wall_s_resumed": again["wall_s"],
+            "summary": {k: v for k, v in first["summary"].items() if k != "chunks"}}
 
 
 def check_small_agreement(torch) -> None:
@@ -921,13 +1263,19 @@ def main() -> int:
         lazy = run_lazy_path(torch, K, T, tmp)
         resume = run_curve_and_resume(torch, K, T, tmp, non_e2e)
         sweep = run_sweep_chunk(torch, K, T, tmp)
+        fused_sweep = run_fused_chunks(torch, K, T, tmp, sweep)
+        cli_sweep = run_cli_sweep(torch, tmp)
     check_small_agreement(torch)
 
     t, kb = k1["times"], k1["bounds"]
     st, sb = sweep["k1"]["times"], sweep["k1"]["bounds"]
     by_path = {"non_e2e": non_e2e["launches"], "e2e": e2e["launches"],
                "fused_sgd": fused["sgd"]["launches"], "fused_adam": fused["adam"]["launches"],
-               **lazy["launches"], **resume["launches"], "sweep_chunk": sweep["launches"]}
+               **lazy["launches"], **resume["launches"], "sweep_chunk": sweep["launches"],
+               "sweep_fused_adam": fused_sweep["adam"]["launches"],
+               "sweep_fused_sgd": fused_sweep["sgd"]["launches"],
+               "sweep_cli": cli_sweep["launches"],
+               "sweep_cli_resumed": cli_sweep["launches_resumed"]}
     k1_path = {"fwd": e2e["launches"]["k1_fwd"], "bwd": e2e["launches"]["k1_bwd"]}
     record = {"kernels": [
         {"name": f"K1-{kind} angular_partition", "route": "cuda", "source": source,
@@ -957,7 +1305,13 @@ def main() -> int:
          "ms_b512": k2["times"][kind][512]["kernel"],
          "plain_ms_b512": k2["times"][kind][512]["plain"],
          "bound_ms_b512": k2["bounds"][kind][512][0],
-         "bound_by_b512": k2["bounds"][kind][512][1]}
+         "bound_by_b512": k2["bounds"][kind][512][1],
+         "launches_sweep_fused": fused_sweep[kind]["launches"][f"k2_{kind}"],
+         "ms_k32": k2["times"][kind]["k32"]["kernel"],
+         "plain_ms_k32": k2["times"][kind]["k32"]["plain"],
+         "ms_2d_x32": k2["times"][kind]["k32"]["sliced"],
+         "bound_ms_k32": k2["bounds"][kind]["k32"][0],
+         "bound_by_k32": k2["bounds"][kind]["k32"][1]}
         for kind, line in (("adam", 166), ("sgd", 210))
     ], "launches_by_path": by_path,
         "paths": {"non_e2e": {k: non_e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},
@@ -966,7 +1320,12 @@ def main() -> int:
                             for k, v in fused.items()},
                   "lazy": {k: v for k, v in lazy.items() if k != "launches"},
                   "curve_and_resume": {k: v for k, v in resume.items() if k != "launches"},
-                  "sweep_chunk": {k: v for k, v in sweep.items() if k not in ("launches", "k1")}},
+                  "sweep_chunk": {k: v for k, v in sweep.items()
+                                  if k not in ("launches", "k1", "result")},
+                  "sweep_fused": {k: {m: x for m, x in v.items() if m != "launches"}
+                                  for k, v in fused_sweep.items()},
+                  "sweep_cli": {k: v for k, v in cli_sweep.items()
+                                if not k.startswith("launches")}},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

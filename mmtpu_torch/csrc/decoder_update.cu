@@ -16,10 +16,19 @@
 //   flag <= 0: w2, m2, v2 = w, m, v bit for bit
 //   g_x  = g_z w^T with the PRE-update w, whatever flag     (B, D)
 // bc1 and bc2 are the bias corrections at the post-increment step count.
-// Each of lr, bc1, bc2 and flag comes either as the device pointer of a
-// float32 scalar or, where that pointer is null, by value, so a caller that
-// keeps them on the device never waits for the host.  Outputs are written out
-// of place (w2, m2, v2 are new buffers).
+// Each of lr, bc1, bc2 and flag comes either as a device pointer to float32
+// or, where that pointer is null, by value, so a caller that keeps them on
+// the device never waits for the host.  Outputs are written out of place
+// (w2, m2, v2 are new buffers).
+//
+// The config axis: a call may carry K independent problems, (K, D, F)
+// tables, x (K, B, D), g_z (K, B, F), g_x (K, B, D), as the sweep trains K
+// configs as one program (mmtpu vmaps the Pallas kernel there, which adds a
+// grid dimension).  Config k is blockIdx.z: each block offsets its pointers
+// by k, reads each scalar at ptr[k * stride] (stride 1 for a per-config
+// scalar, 0 for a shared one), and owns its own tickets and g_x slabs, so no
+// value crosses configs and a config at flag 0 passes its tables through.
+// One call is one launch whatever K; the 2-D call is K = 1.
 //
 // What bounds it on an H100: at the main path's shape (B, D, F) = (64, 300,
 // 1400) the Adam call must move w, m, v in and out (6 x 1.68 MB) plus g_z,
@@ -27,13 +36,17 @@
 // 2 x 2 x 64 x 300 x 1400 = 108 MFLOP, 1.6 us at the 67 TFLOP/s float32 peak
 // outside the tensor cores, so bytes bound it.  The SGD call moves 3.9 MB
 // (1.2 us) for the same 108 MFLOP, so operations bound it.  Float32 FMAs
-// throughout: plain TF32 misses the 1e-5 gates.
+// throughout: plain TF32 misses the 1e-5 gates.  At the sweep's fused shape
+// (K, B, D, F) = (32, 64, 300, 1400) the Adam call moves 32 x 10.6 MB (0.101
+// ms), bytes-bound; the SGD call does 32 x 108 MFLOP (0.052 ms),
+// operations-bound.
 //
 // Design:
 // - One launch per call.  A block owns one D tile of DT rows and a chunk of
-//   whole F sub-tiles of FT columns (grid: mmtpu_torch/kernels/angular.py::
-//   fwd_grid, one wave of the occupancy query's slots: at the main path's
-//   shape 19 D tiles x 11 chunks of 2 sub-tiles, 209 blocks).  It walks its
+//   whole F sub-tiles of FT columns of one config (grid: mmtpu_torch/kernels/
+//   angular.py::fwd_grid fed 1/K of the occupancy query's slots, so the grid
+//   stays near one wave: at the main path's shape 19 D tiles x 11 chunks of 2
+//   sub-tiles, 209 blocks; at K = 32 one chunk per D tile, 608).  It walks its
 //   sub-tiles and, inside each, the batch in chunks of BB rows: a "stage" is
 //   one (sub-tile, batch chunk).  Per stage it stages g_z (BB x FT) and the
 //   x chunk (BB x DT; once per block when B <= BB) and, at a new sub-tile,
@@ -110,13 +123,15 @@ struct Smem {
     float4 xgx[4 * THREADS];
 };
 
-// A scalar argument: read through p where it is not null, else v.
+// A scalar argument: config k's value at p[k * stride] where p is not
+// null, else v.
 struct Scalar {
     const float* p;
     float v;
+    int stride;
 };
 
-__device__ inline float get(Scalar s) { return s.p ? *s.p : s.v; }
+__device__ inline float get(Scalar s, int k) { return s.p ? s.p[(size_t)k * s.stride] : s.v; }
 
 __device__ inline void cp16(void* dst, const void* src, bool in) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -255,11 +270,12 @@ __device__ inline void sum_slabs(const float4* slabs, int count, float4 (&acc)[E
     }
 }
 
-// grid (ceil(D / DT), n_chunks); chunk c covers F sub-tiles [c tpc, (c + 1)
-// tpc).  partial: one BB x DT slab per (D tile, batch chunk, chunk), in that
-// order (a region's slabs side by side); tickets: one per region,
-// all 0, and left 0.  vec_f: F % 4 == 0 and g_z and the (D, F) tables
-// 16-byte aligned; vec_d: D % 4 == 0 and x and gx 16-byte aligned.
+// grid (ceil(D / DT), n_chunks, K); chunk c covers F sub-tiles [c tpc,
+// (c + 1) tpc) of config blockIdx.z.  partial: per config, one BB x DT slab
+// per (D tile, batch chunk, chunk), in that order (a region's slabs side by
+// side); tickets: one per (config, region), all 0, and left 0.  vec_f: F % 4
+// == 0 and g_z and the tables 16-byte aligned; vec_d: D % 4 == 0 and x and gx
+// 16-byte aligned (then every config's slice is aligned too).
 template <bool ADAM>
 __global__ void __launch_bounds__(THREADS, 2)
 dec_update_kernel(const float* __restrict__ x, const float* __restrict__ gz,
@@ -272,6 +288,26 @@ dec_update_kernel(const float* __restrict__ x, const float* __restrict__ gz,
     extern __shared__ float4 smem_raw[];
     Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
     __shared__ bool last;
+
+    // this block's config: its slices of every array
+    const int kc = blockIdx.z;
+    const size_t bd = (size_t)B * D, df = (size_t)D * F;
+    x += kc * bd;
+    gx += kc * bd;
+    gz += kc * (size_t)B * F;
+    w += kc * df;
+    w2 += kc * df;
+    if (ADAM) {
+        m += kc * df;
+        v += kc * df;
+        m2 += kc * df;
+        v2 += kc * df;
+    }
+    {
+        const size_t regions = (size_t)gridDim.x * ((B + BB - 1) / BB);
+        partial += kc * regions * gridDim.y * (size_t)(BB * DT);
+        tickets += kc * regions;
+    }
 
     const int tid = threadIdx.x;
     const int q = tid / QT, t = tid % QT;  // the quarter splits each product's sum
@@ -290,10 +326,10 @@ dec_update_kernel(const float* __restrict__ x, const float* __restrict__ gz,
     const int n_stages = (st1 - st0) * nbc;
     const int n_chunks = gridDim.y;
 
-    const float lr = get(lr_a);
-    const bool on = get(flag_a) > 0.f;
-    const float bc1 = ADAM ? get(bc1_a) : 1.f;
-    const float bc2 = ADAM ? get(bc2_a) : 1.f;
+    const float lr = get(lr_a, kc);
+    const bool on = get(flag_a, kc) > 0.f;
+    const float bc1 = ADAM ? get(bc1_a, kc) : 1.f;
+    const float bc2 = ADAM ? get(bc2_a, kc) : 1.f;
 
     // a stage's copies in two groups: g_z and x (for g_w), then the sub-tile
     // of w (and of m and v) for g_x and the step, at its first batch chunk
@@ -470,17 +506,18 @@ bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 template <bool ADAM>
 int launch(const void* x, const void* gz, const void* w, const void* m, const void* v,
            Scalar lr, Scalar bc1, Scalar bc2, Scalar flag, void* w2, void* m2, void* v2,
-           void* partial, void* tickets, void* gx, int B, int D, int F, int n_chunks, int tpc,
-           void* stream) {
+           void* partial, void* tickets, void* gx, int K, int B, int D, int F, int n_chunks,
+           int tpc, void* stream) {
     const int n_sub = (F + FT - 1) / FT;
-    if (B < 1 || D < 1 || F < 1 || tpc < 1 || n_chunks != (n_sub + tpc - 1) / tpc)
+    if (K < 1 || K > 65535 || B < 1 || D < 1 || F < 1 || tpc < 1 ||
+        n_chunks != (n_sub + tpc - 1) / tpc)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = configure<ADAM>();
     if (err != cudaSuccess) return (int)err;
     bool vec_f = F % 4 == 0 && aligned(gz) && aligned(w) && aligned(w2);
     if (ADAM) vec_f = vec_f && aligned(m) && aligned(v) && aligned(m2) && aligned(v2);
     const bool vec_d = D % 4 == 0 && aligned(x) && aligned(gx);
-    dim3 grid((D + DT - 1) / DT, n_chunks);
+    dim3 grid((D + DT - 1) / DT, n_chunks, K);
     dec_update_kernel<ADAM><<<grid, THREADS, sizeof(Smem), (cudaStream_t)stream>>>(
         (const float*)x, (const float*)gz, (const float*)w, (const float*)m, (const float*)v, lr,
         bc1, bc2, flag, (float*)w2, (float*)m2, (float*)v2, (float*)partial, (unsigned*)tickets,
@@ -516,27 +553,31 @@ int dec_update_blocks_per_sm(int adam) {
     return err == cudaSuccess ? n : -1;
 }
 
-// Each scalar is (pointer, value): the pointer of a float32 device scalar,
-// or null and the value.  partial: ceil(D / DT) x ceil(B / BB) x n_chunks
-// slabs of BB x DT floats, scratch; tickets:
-// ceil(D / DT) x ceil(B / BB) uint32, all 0 (and left 0); w2, m2, v2: (D, F);
-// gx: (B, D).
+// K configs (K = 1 for one problem): x (K, B, D), gz (K, B, F), the tables
+// (K, D, F), gx (K, B, D), contiguous.  Each scalar is (pointer, value,
+// stride): a float32 device pointer, config k's value at pointer[k * stride]
+// (stride 0: one value for all), or null and the value.  partial: K x ceil(D
+// / DT) x ceil(B / BB) x n_chunks slabs of BB x DT floats, scratch; tickets:
+// K x ceil(D / DT) x ceil(B / BB) uint32, all 0 (and left 0).
 int dec_update_adam(const void* x, const void* gz, const void* w, const void* m, const void* v,
-                    const float* lr_p, float lr_v, const float* bc1_p, float bc1_v,
-                    const float* bc2_p, float bc2_v, const float* flag_p, float flag_v,
-                    void* w2, void* m2, void* v2, void* partial, void* tickets, void* gx, int B,
-                    int D, int F, int n_chunks, int tpc, void* stream) {
-    return launch<true>(x, gz, w, m, v, Scalar{lr_p, lr_v}, Scalar{bc1_p, bc1_v},
-                        Scalar{bc2_p, bc2_v}, Scalar{flag_p, flag_v}, w2, m2, v2, partial,
-                        tickets, gx, B, D, F, n_chunks, tpc, stream);
+                    const float* lr_p, float lr_v, int lr_s, const float* bc1_p, float bc1_v,
+                    int bc1_s, const float* bc2_p, float bc2_v, int bc2_s, const float* flag_p,
+                    float flag_v, int flag_s, void* w2, void* m2, void* v2, void* partial,
+                    void* tickets, void* gx, int K, int B, int D, int F, int n_chunks, int tpc,
+                    void* stream) {
+    return launch<true>(x, gz, w, m, v, Scalar{lr_p, lr_v, lr_s}, Scalar{bc1_p, bc1_v, bc1_s},
+                        Scalar{bc2_p, bc2_v, bc2_s}, Scalar{flag_p, flag_v, flag_s}, w2, m2, v2,
+                        partial, tickets, gx, K, B, D, F, n_chunks, tpc, stream);
 }
 
 int dec_update_sgd(const void* x, const void* gz, const void* w, const float* lr_p, float lr_v,
-                   const float* flag_p, float flag_v, void* w2, void* partial, void* tickets,
-                   void* gx, int B, int D, int F, int n_chunks, int tpc, void* stream) {
-    return launch<false>(x, gz, w, nullptr, nullptr, Scalar{lr_p, lr_v}, Scalar{nullptr, 1.f},
-                         Scalar{nullptr, 1.f}, Scalar{flag_p, flag_v}, w2, nullptr, nullptr,
-                         partial, tickets, gx, B, D, F, n_chunks, tpc, stream);
+                   int lr_s, const float* flag_p, float flag_v, int flag_s, void* w2,
+                   void* partial, void* tickets, void* gx, int K, int B, int D, int F,
+                   int n_chunks, int tpc, void* stream) {
+    return launch<false>(x, gz, w, nullptr, nullptr, Scalar{lr_p, lr_v, lr_s},
+                         Scalar{nullptr, 1.f, 0}, Scalar{nullptr, 1.f, 0},
+                         Scalar{flag_p, flag_v, flag_s}, w2, nullptr, nullptr, partial, tickets,
+                         gx, K, B, D, F, n_chunks, tpc, stream);
 }
 
 }  // extern "C"

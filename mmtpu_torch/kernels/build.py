@@ -110,9 +110,9 @@ def load() -> ctypes.CDLL:
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         f = ctypes.c_float
-        lib.dec_update_adam.argtypes = [vp] * 5 + [vp, f] * 4 + [vp] * 6 + [i] * 5 + [vp]
+        lib.dec_update_adam.argtypes = [vp] * 5 + [vp, f, i] * 4 + [vp] * 6 + [i] * 6 + [vp]
         lib.dec_update_adam.restype = i
-        lib.dec_update_sgd.argtypes = [vp] * 3 + [vp, f] * 2 + [vp] * 4 + [i] * 5 + [vp]
+        lib.dec_update_sgd.argtypes = [vp] * 3 + [vp, f, i] * 2 + [vp] * 4 + [i] * 6 + [vp]
         lib.dec_update_sgd.restype = i
         lib.dec_update_blocks_per_sm.argtypes = [i]
         lib.dec_update_blocks_per_sm.restype = i

@@ -22,11 +22,18 @@ resident blocks per SM from the library's occupancy query.
   (torch twins of mmtpu's ``xla_reference_adam`` / ``xla_reference_sgd``)
   that the tests and ``chip_smoke.py`` hold the kernel to.
 
-``lr``, ``bc1``, ``bc2`` and ``flag`` may be numbers or 0-d tensors.  On the
-card each travels to the kernel on its own: a 0-d tensor on the card by its
+The config axis (the sweep's K configs, as mmtpu vmaps its kernel there):
+the wrappers take ``(D, F)`` tables, ``x (B, D)`` and ``g_z (B, F)``, or the
+same with a leading ``K``: ``(K, D, F)``, ``(K, B, D)``, ``(K, B, F)``.  One
+call is one launch whatever K (config k is the kernel's ``blockIdx.z``); the
+2-D call is the K = 1 case of the same launch.
+
+``lr``, ``bc1``, ``bc2`` and ``flag`` may each be a number, a 0-d tensor
+(one value for every config) or a ``(K,)`` tensor (one per config).  On the
+card each travels to the kernel on its own: a tensor on the card by its
 device pointer (converted to float32 there only where it is not already), a
-number or a host tensor by value.  A caller that keeps them on the device
-never waits for the host.
+``(K,)`` host tensor copied to the card first, a number or a 0-d host tensor
+by value.  A caller that keeps them on the device never waits for the host.
 """
 
 from __future__ import annotations
@@ -36,43 +43,55 @@ import torch
 from mmtpu_torch.kernels.angular import fwd_grid
 from mmtpu_torch.kernels.build import Tickets, blocks_per_sm, sm_count
 from mmtpu_torch.train.optim import _B1, _B2, _EPS
+from mmtpu_torch.tree import per_config
 
 # kernel launches by wrapper; read (and reset) by chip_smoke.py
 LAUNCHES = {"adam": 0, "sgd": 0}
 
 
+def _keep(flag, w):
+    """``flag > 0`` against ``w``'s rank (per config under the config axis)."""
+    return per_config(torch.as_tensor(flag, device=w.device) > 0, w.ndim)
+
+
 def reference_adam(w, m, v, x, g_z, lr, bc1, bc2, flag):
     """Plain version of :func:`fused_gemm_adam_update`."""
-    g = x.T @ g_z
+    lr, bc1, bc2 = (per_config(s, w.ndim) for s in (lr, bc1, bc2))
+    g = x.transpose(-1, -2) @ g_z
     m2 = _B1 * m + (1.0 - _B1) * g
     v2 = _B2 * v + (1.0 - _B2) * (g * g)
     w2 = w - lr * (m2 / bc1) / (torch.sqrt(v2 / bc2) + _EPS)
-    keep = torch.as_tensor(flag, device=w.device) > 0
+    keep = _keep(flag, w)
     return (torch.where(keep, w2, w), torch.where(keep, m2, m), torch.where(keep, v2, v),
-            g_z @ w.T)
+            g_z @ w.transpose(-1, -2))
 
 
 def reference_sgd(w, x, g_z, lr, flag):
     """Plain version of :func:`fused_gemm_sgd_update`."""
-    g = x.T @ g_z
-    keep = torch.as_tensor(flag, device=w.device) > 0
-    return torch.where(keep, w - lr * g, w), g_z @ w.T
+    g = x.transpose(-1, -2) @ g_z
+    return (torch.where(_keep(flag, w), w - per_config(lr, w.ndim) * g, w),
+            g_z @ w.transpose(-1, -2))
 
 
-def _check(w, x, g_z, *tables) -> None:
-    if w.ndim != 2 or x.ndim != 2 or g_z.ndim != 2:
+def _check(w, x, g_z, tables, scalars) -> None:
+    if w.ndim not in (2, 3) or x.ndim != w.ndim or g_z.ndim != w.ndim:
         raise ValueError("decoder update takes (D, F) weights, (B, D) latents and (B, F) "
-                         f"cotangents, got {tuple(w.shape)}, {tuple(x.shape)}, "
-                         f"{tuple(g_z.shape)}")
-    (d, f), b = w.shape, x.shape[0]
-    if x.shape[1] != d or g_z.shape != (b, f):
+                         "cotangents, each with or without a leading config axis, got "
+                         f"{tuple(w.shape)}, {tuple(x.shape)}, {tuple(g_z.shape)}")
+    lead, (d, f), b = w.shape[:-2], w.shape[-2:], x.shape[-2]
+    if x.shape != (*lead, b, d) or g_z.shape != (*lead, b, f):
         raise ValueError(f"decoder update: weights {tuple(w.shape)}, latents "
                          f"{tuple(x.shape)} and cotangents {tuple(g_z.shape)} disagree")
     for t in tables:
         if t.shape != w.shape:
             raise ValueError(f"moment shape {tuple(t.shape)} != weight shape {tuple(w.shape)}")
-    if min(b, d, f) < 1:
-        raise ValueError(f"decoder update takes non-empty shapes, got B, D, F = {b, d, f}")
+    k = lead[0] if lead else 1
+    if min(k, b, d, f) < 1:
+        raise ValueError(f"decoder update takes non-empty shapes, got K, B, D, F = {k, b, d, f}")
+    for s in scalars:
+        if isinstance(s, torch.Tensor) and s.numel() != 1 and not (lead and s.shape == (k,)):
+            raise ValueError(f"decoder update: a scalar argument has one element or, with the "
+                             f"config axis, is a ({k},) tensor; got {tuple(s.shape)}")
 
 
 def _on_cpu(*tensors) -> bool:
@@ -93,23 +112,23 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _scalar(s, device) -> tuple:
-    """``(pointer, value, keep)`` of one scalar argument for the kernel.  A
-    0-d tensor on the card travels by its device pointer, converted to
-    float32 on ``device`` only where its dtype or device differs (``keep``
-    holds the copy until the launch is queued); a number, or a tensor on the
-    host, travels by value.  Nothing waits for the card."""
-    if isinstance(s, torch.Tensor):
-        if s.numel() != 1:
-            raise ValueError(f"decoder update: scalar argument of shape {tuple(s.shape)}")
-        if s.device.type == "cpu":
-            return None, float(s), None
-        if s.device != device or s.dtype != torch.float32:
-            s = s.to(device=device, dtype=torch.float32)
-        return s.data_ptr(), 0.0, s
-    return None, float(s), None
+    """``(pointer, value, stride, keep)`` of one scalar argument for the
+    kernel.  A tensor on the card travels by its device pointer, converted
+    to contiguous float32 on ``device`` only where it is not (``keep``
+    holds the copy until the launch is queued), with stride 1 for one value
+    per config and 0 for one value; a ``(K,)`` host tensor is copied to the
+    card first; a number, or a one-element tensor on the host, travels by
+    value."""
+    if not isinstance(s, torch.Tensor):
+        return None, float(s), 0, None
+    if s.numel() == 1 and s.device.type == "cpu":
+        return None, float(s), 0, None
+    if s.device != device or s.dtype != torch.float32 or not s.is_contiguous():
+        s = s.to(device=device, dtype=torch.float32).contiguous()
+    return s.data_ptr(), 0.0, int(s.numel() > 1), s
 
 
-# the kernel's tickets, one per (D tile, batch chunk)
+# the kernel's tickets, one per (config, D tile, batch chunk)
 _TICKETS = Tickets()
 
 
@@ -118,24 +137,28 @@ def _launch(kind: str, x, g_z, w, m, v, scalars):
 
     lib = load()
     dev = w.device
-    (b, d), f = x.shape, w.shape[1]
+    k = w.shape[0] if w.ndim == 3 else 1
+    (b, d), f = x.shape[-2:], w.shape[-1]
     d_tile, b_chunk = lib.dec_update_d_tile(), lib.dec_update_batch_chunk()
     # K1's forward grid rule, with D tiles for row tiles and F sub-tiles for
-    # vocabulary sub-tiles
-    chunks, tpc = fwd_grid(d, f, d_tile, lib.dec_update_f_tile(), sm_count(dev.index),
+    # vocabulary sub-tiles, fed 1/K of the card's slots: the K configs'
+    # blocks together stay near one wave (one F chunk per D tile at least)
+    chunks, tpc = fwd_grid(d, f, d_tile, lib.dec_update_f_tile(),
+                           max(1, sm_count(dev.index) // k),
                            blocks_per_sm("dec_update_blocks_per_sm", dev.index,
                                          int(kind == "adam")))
-    # one (D tile, batch chunk) region per ticket, a padded slab per chunk in each
-    regions = -(-d // d_tile) * -(-b // b_chunk)
+    # per config, one (D tile, batch chunk) region per ticket and a padded
+    # slab per chunk in each
+    regions = k * -(-d // d_tile) * -(-b // b_chunk)
     partial = torch.empty(regions * chunks * b_chunk * d_tile, dtype=torch.float32, device=dev)
-    g_x = torch.empty((b, d), dtype=torch.float32, device=dev)
+    g_x = torch.empty(x.shape, dtype=torch.float32, device=dev)
     w2 = torch.empty_like(w)
     args = [_scalar(s, dev) for s in scalars]
-    flat = [a for p, val, _ in args for a in (p, val)]
+    flat = [a for p, val, stride, _ in args for a in (p, val, stride)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         tickets = _TICKETS(dev, stream, regions)
-        tail = (partial.data_ptr(), tickets.data_ptr(), g_x.data_ptr(), b, d, f, chunks, tpc,
+        tail = (partial.data_ptr(), tickets.data_ptr(), g_x.data_ptr(), k, b, d, f, chunks, tpc,
                 stream)
         if kind == "adam":
             m2, v2 = torch.empty_like(m), torch.empty_like(v)
@@ -154,12 +177,13 @@ def fused_gemm_adam_update(w, m, v, x, g_z, lr, bc1, bc2, flag):
     """Fused ``g_w = x^T g_z``, torch-Adam step of ``(w, m, v)`` and
     ``g_x = g_z w^T``; returns ``(w2, m2, v2, g_x)``.
 
-    ``w, m, v``: ``(D, F)``; ``x``: ``(B, D)``; ``g_z``: ``(B, F)``.  ``bc1``,
-    ``bc2`` are ``1 - beta^count`` at the post-increment step count;
-    ``flag`` 0 passes ``w, m, v`` through unchanged (``g_x`` is computed
-    either way).  Zero columns of ``w, m, v`` with zero ``g_z`` stay zero.
+    ``w, m, v``: ``(D, F)``; ``x``: ``(B, D)``; ``g_z``: ``(B, F)``; or
+    each with a leading config axis K.  ``bc1``, ``bc2`` are ``1 - beta^count``
+    at the post-increment step count; ``flag`` 0 passes ``w, m, v`` through
+    unchanged (``g_x`` is computed either way), per config where it is
+    ``(K,)``.  Zero columns of ``w, m, v`` with zero ``g_z`` stay zero.
     """
-    _check(w, x, g_z, m, v)
+    _check(w, x, g_z, (m, v), (lr, bc1, bc2, flag))
     if _on_cpu(w, m, v, x, g_z):
         return reference_adam(w, m, v, x, g_z, lr, bc1, bc2, flag)
     return _launch("adam", x, g_z, w, m, v, (lr, bc1, bc2, flag))
@@ -167,7 +191,7 @@ def fused_gemm_adam_update(w, m, v, x, g_z, lr, bc1, bc2, flag):
 
 def fused_gemm_sgd_update(w, x, g_z, lr, flag):
     """SGD variant of :func:`fused_gemm_adam_update`: returns ``(w2, g_x)``."""
-    _check(w, x, g_z)
+    _check(w, x, g_z, (), (lr, flag))
     if _on_cpu(w, x, g_z):
         return reference_sgd(w, x, g_z, lr, flag)
     return _launch("sgd", x, g_z, w, None, None, (lr, flag))

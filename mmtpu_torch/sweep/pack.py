@@ -39,9 +39,11 @@ from mmtpu_torch.train.optim import OPT_CODES
 @dataclasses.dataclass(frozen=True)
 class SweepStatics:
     """Maxima and flags shared by every config of a sweep chunk (the fields
-    of :class:`mmtpu.sweep.pack.SweepStatics` that the port runs; its other
-    options are arguments of :func:`mmtpu_torch.sweep.runner.run_chunk`
-    that raise until they are ported)."""
+    of :class:`mmtpu.sweep.pack.SweepStatics` that the port runs; mmtpu's
+    ``infer_warm_start`` is an argument of
+    :func:`mmtpu_torch.sweep.runner.run_chunk` that raises until it is
+    ported, and the TPU's ``unroll`` and ``use_pallas`` have no counterpart:
+    the port runs no scan, and K1 is always the kernel on the card)."""
 
     n_epochs_max: int
     n_sentiment_epochs_max: int
@@ -60,6 +62,17 @@ class SweepStatics:
     # epoch-level lazy Adam for the latent tables (train/optim.py), the
     # sweep's default in mmtpu (mmtpu/sweep/runner.py:453-454)
     lazy_adam: bool = False
+    # recursive validation curves during training, reference cadence 80
+    # (simplesif.py:146-159, 795-799); expensive, opt-in
+    validation_curve: bool = False
+    # shrink a single-batch inference fit's batch to the next batch_size
+    # multiple >= the split's rows: the same row grouping, float order only
+    infer_batch_clamp: bool = False
+    # the train fit's decoder-weight updates in kernel K2 (train/fused.py)
+    fused_dec_update: bool = False
+    # cap the inference fits' epochs (0: the config's own n_epochs, the
+    # reference's semantics); opt-in, not reference parity
+    infer_epochs_cap: int = 0
 
 
 def statics_from_configs(

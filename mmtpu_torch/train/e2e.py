@@ -191,4 +191,4 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     if inner_spec is None:
         return out
     curve.append(valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec))
-    return out + (torch.stack(curve),)
+    return out + (torch.stack(curve, dim=-1),)

@@ -18,6 +18,13 @@ layout (:func:`mmtpu_torch.models.decoder.stack_decoder`):
 
 The gradients are those of autograd over the whole loss in exact arithmetic;
 floats differ only by the order of the products' sums.
+
+Under the sweep's config axis (``(K, B, D)`` rows, decoder leaves that lead
+with K, ``(K,)`` hp values, gates and step count) the step is K steps in
+one: each config's loss is its own batch mean, the bias gradients sum each
+config's rows, the norm's chain rule closes per config, and each of K2's two
+calls carries all K configs, with per-config ``lr``, bias corrections and
+flag (one launch per call).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 from mmtpu_torch.kernels.decoder_update import fused_gemm_adam_update, fused_gemm_sgd_update
 from mmtpu_torch.models.decoder import apply_norm
 from mmtpu_torch.train.optim import _B1, _B2, OptState, _gated, opt_update
-from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+from mmtpu_torch.tree import rowwise, tree_leaves, tree_map, tree_unflatten
 
 
 def _requiring_grad(tree):
@@ -42,15 +49,17 @@ def fused_joint_step(dec, d_opt: OptState, rows: torch.Tensor, b: Mapping, vocab
     """One training step's loss and gradients with the fused decoder update.
 
     ``dec`` is the stacked decoder, ``d_opt`` its ``OptState`` (moments for
-    "adam", none for "sgd"), ``rows`` the ``(B, D)`` latent batch.
-    ``heads_gate`` / ``norm_gate`` are 0/1 freeze gates (numbers or 0-d
-    tensors) for the head weights and biases / the norm's affine parameters.
-    ``combine(extra_params, neg_joint, rows) -> (B,)`` replaces the
-    per-sample loss (the e2e sentiment term); the gradients of
+    "adam", none for "sgd"), ``rows`` the ``(B, D)`` latent batch, or
+    ``(K, B, D)`` under the config axis.  ``heads_gate`` / ``norm_gate`` are
+    0/1 freeze gates (numbers, 0-d or ``(K,)`` tensors) for the head weights
+    and biases / the norm's affine parameters.
+    ``combine(extra_params, neg_joint, rows) -> (B,)`` (``(K, B)``) replaces
+    the per-sample loss (the e2e sentiment term); the gradients of
     ``extra_params`` are returned for the caller's own update.
 
-    Returns ``(loss, g_rows, g_extra, dec2, d_opt2)``.  Every scalar of the
-    step (lr, bias corrections, flag) stays on the device.
+    Returns ``(loss, g_rows, g_extra, dec2, d_opt2)``, ``loss`` 0-d or
+    ``(K,)``.  Every scalar of the step (lr, bias corrections, flag) stays
+    on the device.
     """
     from mmtpu_torch.train.latents import _word_logprob, neg_joint, stacked_head_log_probs
 
@@ -67,8 +76,8 @@ def fused_joint_step(dec, d_opt: OptState, rows: torch.Tensor, b: Mapping, vocab
 
     # 2. the head pre-activations, as leaves of the loss
     with torch.no_grad():
-        z_mu = xd @ hs["w_mu"] + hs["b_mu"]
-        z_sig = xd @ hs["w_log_sigma"] + hs["b_log_sigma"]
+        z_mu = xd @ hs["w_mu"] + rowwise(hs["b_mu"])
+        z_sig = xd @ hs["w_log_sigma"] + rowwise(hs["b_log_sigma"])
     z_mu.requires_grad_()
     z_sig.requires_grad_()
 
@@ -80,11 +89,13 @@ def fused_joint_step(dec, d_opt: OptState, rows: torch.Tensor, b: Mapping, vocab
     neg = neg_joint(stacked_head_log_probs(spec, z_mu, torch.exp(z_sig), b), word_lp, hp)
     per_sample = neg if combine is None else combine(extra, neg, lat)
     if row_valid is None:
-        loss = torch.mean(per_sample)
+        loss = torch.mean(per_sample, dim=-1)
     else:
-        loss = torch.sum(per_sample * row_valid) / torch.clamp_min(torch.sum(row_valid), 1.0)
+        loss = torch.sum(per_sample * row_valid, dim=-1) / torch.clamp_min(
+            torch.sum(row_valid), 1.0)
     extra_leaves = [] if extra is None else tree_leaves(extra)
-    grads = torch.autograd.grad(loss, [lat, z_mu, z_sig] + extra_leaves)
+    # per-config means summed: each config's gradient is its own
+    grads = torch.autograd.grad(loss.sum(), [lat, z_mu, z_sig] + extra_leaves)
     g_lat, g_zmu, g_zsig = grads[0], grads[1].contiguous(), grads[2].contiguous()
     g_extra = None if extra is None else tree_unflatten(extra, grads[3:])
 
@@ -115,7 +126,7 @@ def fused_joint_step(dec, d_opt: OptState, rows: torch.Tensor, b: Mapping, vocab
 
     # 6. biases and norm by opt_update, sharing the decoder's step count
     small = {"b_mu": hs["b_mu"], "b_log_sigma": hs["b_log_sigma"], "norm": dec["norm"]}
-    g_small = {"b_mu": torch.sum(g_zmu, dim=0), "b_log_sigma": torch.sum(g_zsig, dim=0),
+    g_small = {"b_mu": torch.sum(g_zmu, dim=-2), "b_log_sigma": torch.sum(g_zsig, dim=-2),
                "norm": g_norm}
     gates = {"b_mu": heads_gate, "b_log_sigma": heads_gate,
              "norm": {k: norm_gate for k in dec["norm"]}}

@@ -456,19 +456,29 @@ def make_inner_valid_spec(spec, valid_batch_mult: int) -> LatentFitSpec:
 
 def valid_fit_loss(validation, dec, vocab_emb, hp: Mapping, inner_spec) -> torch.Tensor:
     """One validation sample: the valid split refit from its SIF init against
-    the frozen decoder ``dec``; the loss of its last active epoch."""
+    the frozen decoder ``dec``; the loss of its last active epoch (each
+    config's own under the config axis, ``(K,)``)."""
     v_init, v_data = validation
     _, _, v_losses = fit_latents(v_init, dec, v_data, vocab_emb, hp, inner_spec)
-    return v_losses[min(max(int(hp["n_epochs"]) - 1, 0), inner_spec.n_epochs_max - 1)]
+    n, last = hp["n_epochs"], inner_spec.n_epochs_max - 1
+    if isinstance(n, torch.Tensor) and n.ndim == 1:
+        idx = torch.clamp(n.to(torch.long) - 1, 0, last)
+        return torch.gather(v_losses, -1, idx[:, None])[:, 0]
+    return v_losses[min(max(int(n) - 1, 0), last)]
 
 
 def valid_curve_entry(epoch: int, spec, validation, dec, vocab_emb, hp: Mapping,
                       inner_spec) -> torch.Tensor:
     """The curve at ``epoch``: a sample on active epochs at the cadence, else
-    NaN (mmtpu's code; its docstring says the last value repeats)."""
-    if epoch < int(hp["n_epochs"]) and epoch % spec.valid_every == 0:
-        return valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec)
-    return torch.full((), float("nan"), device=validation[0].device)
+    NaN (mmtpu's code; its docstring says the last value repeats).  Under
+    the config axis the refit runs for every config at the cadence, and a
+    config past its own epochs reads NaN, as mmtpu's vmapped ``cond``."""
+    nan = torch.full(validation[0].shape[:-2], float("nan"), device=validation[0].device)
+    active = epoch_active(epoch, hp)
+    if epoch % spec.valid_every != 0 or active is False:
+        return nan
+    loss = valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec)
+    return loss if active is True else torch.where(active, loss, nan)
 
 
 def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_emb: torch.Tensor,
@@ -500,7 +510,8 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     ``epoch % valid_every == 0`` and once after the last epoch, the
     reference's recursive validation (``simplesif.py:146-159``).
     ``valid_losses`` is ``(n_epochs_max + 1,)``: each refit's last-epoch
-    loss, NaN between samples, the final sample last.
+    loss, NaN between samples, the final sample last (``(K, n_epochs_max +
+    1)`` under the config axis, where ``valid_init_embed`` is ``(K, N, D)``).
     """
     was_stacked = is_stacked(decoder_params)
     inner_spec = None
@@ -521,4 +532,4 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     if inner_spec is None:
         return out
     curve.append(valid_fit_loss(validation, carry[1], vocab_emb, hp, inner_spec))
-    return out + (torch.stack(curve),)
+    return out + (torch.stack(curve, dim=-1),)

@@ -161,6 +161,83 @@ def test_k2_scalar_arguments(cuda_device, kind):
         assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
 
 
+def _k2_batched_case(dev, k, b, d, f, seed=6):
+    """Batched K2 inputs: per-config lr and flag tensors on the card (the
+    last config at flag 0), bias corrections per config, every output table
+    far above atol 1e-5 (g_z scaled to g_w ~ N(0, 1))."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    t = {"w": 0.05 * r(k, d, f), "m": 0.1 * r(k, d, f), "v": 0.01 * (1.0 + r(k, d, f).abs()),
+         "x": r(k, b, d), "g_z": r(k, b, f) / b ** 0.5}
+    count = torch.arange(1, k + 1, dtype=torch.float32, device=dev)
+    t.update(lr=1e-3 * (1.0 + torch.arange(k, device=dev) % 3),
+             bc1=1.0 - 0.9 ** count, bc2=1.0 - 0.999 ** count,
+             flag=(torch.arange(k, device=dev) < k - 1).to(torch.float32))
+    return t
+
+
+def _k2_batched_calls(t):
+    adam = (lambda fn: fn(t["w"], t["m"], t["v"], t["x"], t["g_z"], t["lr"], t["bc1"], t["bc2"],
+                          t["flag"]))
+    sgd = lambda fn: fn(t["w"], t["x"], t["g_z"], t["lr"], t["flag"])
+    return {"adam": (lambda: adam(T.fused_gemm_adam_update), lambda: adam(T.reference_adam)),
+            "sgd": (lambda: sgd(T.fused_gemm_sgd_update), lambda: sgd(T.reference_sgd))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b,d,f", [(32, 64, 300, 1400), (3, 37, 300, 37),
+                                     (2, 33, 300, 1401)])
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_k2_config_axis_matches_plain(cuda_device, kind, k, b, d, f):
+    """K2 with a leading config axis (the sweep's fused chunk) against its
+    batched plain version, per-config lr, bias corrections and flag, the
+    last config at flag 0: w, m, v at rtol/atol 1e-5, g_x at max-rel 1e-5
+    per config, the flag-0 config's tables bit for bit; one launch per call;
+    a second call bit for bit equal."""
+    t = _k2_batched_case(cuda_device, k, b, d, f)
+    kernel, plain = _k2_batched_calls(t)[kind]
+    before = T.LAUNCHES[kind]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[kind] == before + 1
+    tables = ("w", "m", "v") if kind == "adam" else ("w",)
+    for name, g, p in zip(tables, got[:-1], want[:-1]):
+        torch.testing.assert_close(g, p, rtol=1e-5, atol=1e-5, msg=name)
+        assert torch.equal(g[-1], t[name][-1]), name
+        assert not torch.equal(g[0], t[name][0]), name
+    gx_rel = ((got[-1] - want[-1]).abs().amax(dim=(1, 2))
+              / want[-1].abs().amax(dim=(1, 2)))
+    assert gx_rel.max().item() < 1e-5
+    assert all(torch.equal(a, g) for a, g in zip(kernel(), got))
+
+
+@pytest.mark.cuda
+def test_k2_config_axis_is_one_device_kernel(cuda_device):
+    """One batched call of each kind at the sweep's shape issues one CUDA
+    kernel, as torch.profiler counts them (one profiler session; each call
+    in its own range, synchronised)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    calls = _k2_batched_calls(_k2_batched_case(cuda_device, 32, 64, 300, 1400))
+    for kernel, _ in calls.values():
+        kernel()  # scratch and tickets of the first calls stay out of the count
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for kind, (kernel, _) in calls.items():
+            with record_function(f"k2_call_{kind}"):
+                kernel()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda and not e.name.startswith("k2_call")]
+    assert kernels, "torch.profiler recorded no device event"
+    for kind in calls:
+        span = next(e.time_range for e in events
+                    if e.name == f"k2_call_{kind}" and e.device_type != cuda)
+        assert sum(span.start <= e.time_range.start <= span.end for e in kernels) == 1, kind
+    assert len(kernels) == 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["sgd", "adam"])
 def test_fused_fit_e2e_matches_cpu(cuda_device, kind):

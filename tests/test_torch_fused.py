@@ -122,15 +122,17 @@ def test_k2_scalar_arguments_give_the_same_result(rng, kind):
         assert all(torch.equal(p, q) for p, q in zip(out, outs[0]))
 
 
-def test_k2_scalars_on_the_host_travel_by_value():
-    """A number or a host tensor goes to the kernel by value, with no device
-    pointer and nothing to keep alive; a scalar must have one element."""
+def test_k2_scalars_on_the_host_travel_by_value(rng):
+    """A number or a one-element host tensor goes to the kernel by value
+    (stride 0), with no device pointer and nothing to keep alive; a scalar
+    of a call without the config axis must have one element."""
     dev = torch.device("cpu")
-    assert tk._scalar(0.5, dev) == (None, 0.5, None)
-    assert tk._scalar(torch.tensor(2.5, dtype=torch.float64), dev) == (None, 2.5, None)
-    assert tk._scalar(torch.tensor([3]), dev) == (None, 3.0, None)
+    assert tk._scalar(0.5, dev) == (None, 0.5, 0, None)
+    assert tk._scalar(torch.tensor(2.5, dtype=torch.float64), dev) == (None, 2.5, 0, None)
+    assert tk._scalar(torch.tensor([3]), dev) == (None, 3.0, 0, None)
+    a = {k: _t(v) for k, v in _k2_inputs(rng, 6, 5, 13).items()}
     with pytest.raises(ValueError, match="scalar"):
-        tk._scalar(torch.zeros(2), dev)
+        tk.fused_gemm_sgd_update(a["w"], a["x"], a["g_z"], torch.zeros(2), 1.0)
 
 
 def test_k2_wrappers_reject_what_the_kernel_does_not_take():

@@ -184,10 +184,7 @@ def test_mixed_optimizers_raise(prep):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"fused_dec_update": True}, "item 2b"), ({"validation_curve": True}, "item 2b"),
-    ({"infer_warm_start": True}, "item 4"), ({"infer_epochs_cap": 5}, "item 2b"),
-    ({"infer_batch_clamp": True}, "item 2b"), ({"senti_mask": np.ones(24)}, "item 2b"),
-    ({"mesh": object()}, "item 5"),
+    ({"infer_warm_start": True}, "item 4"), ({"mesh": object()}, "item 5"),
 ])
 def test_unported_options_raise(prep, kw, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
