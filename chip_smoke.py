@@ -29,8 +29,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    inference batch 512; SGD, layer norm, lr 1e-4 as in bench.py), 3 epochs,
    10 sentiment epochs;
 5. the e2e path, the grid's mode, through the same entry point with
-   ``--e2e y`` at the same width and settings (likelihood weight from the
-   grid);
+   ``--e2e y --time_test`` at the same width and settings (likelihood
+   weight from the grid);
 6. the fused decoder update: ``fit_e2e`` with ``fused_dec_update=True``
    beside the same fit without it, same draws, at the same width, once with
    SGD and once with Adam, each timed after one untimed warm-up epoch;
@@ -74,14 +74,34 @@ Phases, in order; any failure raises and the exit code is not 0:
    epochs 400 -> 10) in chunks of 8 with ``--resume_dir``, its kernel
    launches counted in that process; then one chunk's entry taken out of
    ``sweep_state.json`` and the command run again: it computes that chunk
-   only, and its CSV equals the first run's bit for bit.
+   only, and its CSV equals the first run's bit for bit;
+13. closed form and serving: phase 5's ``--time_test`` result (the 686-row
+   test split's latency); that run's decoder through ``closed_form_latents``
+   on the card against the CPU (rtol 1e-5, atol 1e-6); a
+   ``ClosedFormServer`` on the card (ladder 64 / 256 / 1024, the run's
+   sentiment head and the vocabulary) whose raw and stats answers at 64 and
+   686 rows, a 3-row request against the 64-row one, and a 1500-row request
+   (above the ladder) against its two halves agree within 1e-5; each
+   request size's latency, median of 8, device- and host-resident, raw and
+   stats;
+14. the warm-started chunk: phase 10's configs through ``run_chunk`` with
+   ``infer_warm_start`` and ``infer_epochs_cap=1``: each config's inference
+   init against a 2-D ``closed_form_latents_from_stats`` of its own decoder
+   (1e-5), the train fit as phase 10's, finite results, the infer phases'
+   seconds and K1's launches (42 + 3 of each kind) beside phase 10's;
+15. the legacy alternating fit, ``fit_alternating`` on the MOSI train split
+   (the bimodal generator, 3 epochs of 41 batches of 32): K1's forward 123
+   times and its backward never; against the same fit on the CPU (losses
+   rtol 2e-4, latents atol 2e-4); seconds per epoch;
+16. SIF, posenc and nearest words (``mmtpu_torch.ops``,
+   ``mmtpu_torch.analysis``) on the card against the CPU at MOSI width.
 
 Phase 3 also holds K2 with the config axis (``K2_BATCHED_SHAPES``, per-config
 lr, bias corrections and flag, one config at flag 0) to its plain version and
 times it at the fused chunk's shape, beside 32 2-D calls, one per config slice
-of the same inputs, timed as one burst.  Phases 8-12 run inside the temporary
+of the same inputs, timed as one burst.  Phases 8-16 run inside the temporary
 directory of phases 4-6, before phase 7.  Around each path of phases 4-6 and
-8-12 the kernel launch counts are set to 0 just before and read just after
+8-15 the kernel launch counts are set to 0 just before and read just after
 (phase 12's in its own process).  The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -152,6 +172,21 @@ FUSED_PRED_ATOL = 5e-4
 # from each.  SGD has no such step: an SGD chunk's embeddings are held at
 # SWEEP_ATOL everywhere.
 ADAM_EMB_OVER_SHARE, ADAM_EMB_MAX_LR = 1e-4, 8.0
+# phase 13: the closed form on the card against the CPU (the CPU parity
+# tests' tolerance against mmtpu); the server's ladder, a request above it,
+# and the server's raw, stats and padded answers held to each other at
+# mmtpu's tests/test_warm_start.py tolerance
+CF_RTOL, CF_ATOL = 1e-5, 1e-6
+SERVE_LADDER, SERVE_BIG, SERVE_ATOL = (64, 256, 1024), 1500, 1e-5
+# phase 14: each config's warm start against its own 2-D closed form
+WARM_INIT_ATOL = 1e-5
+# phase 15: the alternating fit (batch 32 as sif2.py:479), the card against
+# the CPU at the whole-fit parity tolerances
+ALT_EPOCHS, ALT_LR, ALT_WORD_WEIGHT = 3, 1e-3, 0.001
+ALT_LOSS_RTOL, ALT_LAT_ATOL = 2e-4, 2e-4
+# phase 16: SIF, posenc and nearest words, the card against the CPU (the CPU
+# tests' tolerance against mmtpu; nearest words by their cosines)
+OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
 
 
 def log(msg: str) -> None:
@@ -553,6 +588,14 @@ def run_cli_path(torch, K, T, tmp: str, e2e: bool, flags=(), tag=None, **cfg_ove
 
     runner.fit_latents = timed("fit_latents", lambda args: args[-1].train_decoder)
     runner.fit_e2e = timed("fit_e2e", lambda args: True)
+    closed_form = []  # --time_test's result, as run_experiment returns it
+
+    def time_closed_form(*args, **kw):
+        closed_form.append(originals["time_closed_form"](*args, **kw))
+        return closed_form[-1]
+
+    originals["time_closed_form"] = runner.time_closed_form
+    runner.time_closed_form = time_closed_form
     _reset_launches(K, T)
     try:
         t0 = time.perf_counter()
@@ -562,6 +605,7 @@ def run_cli_path(torch, K, T, tmp: str, e2e: bool, flags=(), tag=None, **cfg_ove
         wall = time.perf_counter() - t0
     finally:
         runner.fit_latents, runner.fit_e2e = originals["fit_latents"], originals["fit_e2e"]
+        runner.time_closed_form = originals["time_closed_form"]
     launches = _read_launches(K, T)
     if rc != 0:
         raise AssertionError(f"mmtpu_torch.run.main returned {rc}")
@@ -588,7 +632,8 @@ def run_cli_path(torch, K, T, tmp: str, e2e: bool, flags=(), tag=None, **cfg_ove
         f"launches {launches}")
     return {"launches": launches, "wall_s": wall, "train_utt_s": train_utt_s,
             "final_loss": float(losses[-1]), "post": post, "folder": folder,
-            "train_fit": next(out for _, trains, _, out in fits if trains)}
+            "train_fit": next(out for _, trains, _, out in fits if trains),
+            "closed_form": closed_form[0] if closed_form else None}
 
 
 def _e2e_inputs(torch, cfg: dict, data_dir: str, dev, kind: str) -> tuple:
@@ -1158,6 +1203,274 @@ def run_cli_sweep(torch, tmp: str) -> dict:
             "summary": {k: v for k, v in first["summary"].items() if k != "chunks"}}
 
 
+def _host_ms(torch, fn, reps: int = 8) -> float:
+    """Median host-clock ms of one call that ends with its result on the host,
+    the device synchronised before each; after one untimed call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run_serving(torch, K, T, tmp: str, e2e: dict) -> dict:
+    """Phase 13: ``--time_test`` of phase 5's run; that run's decoder through
+    ``closed_form_latents`` on the card against the CPU; a
+    ``ClosedFormServer`` on the card (ladder ``SERVE_LADDER``, the run's
+    sentiment head, the vocabulary): raw against stats requests, padding,
+    a request above the ladder against its halves, latencies."""
+    import numpy as np
+
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.convert import to_torch
+    from mmtpu_torch.models.decoder import MMB2_HEADS
+    from mmtpu_torch.ops.closed_form import closed_form_latents
+    from mmtpu_torch.runner import prepare
+    from mmtpu_torch.serve import ClosedFormServer, assemble_head_data, stats_request
+    from mmtpu_torch.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    cf = e2e["closed_form"]
+    log(f"[serve] --time_test of the e2e run: latency_s {cf['latency_s']:.6f} for "
+        f"{cf['n_utterances']} test utterances (one warm call, synced)")
+    if cf["n_utterances"] != 686 or not cf["latency_s"] > 0:
+        raise AssertionError(f"--time_test returned {cf}")
+    _, dec, senti = e2e["train_fit"][:3]
+    prep = prepare(ExperimentConfig.from_dict(smoke_config(True)), os.path.join(tmp, "data"))
+    d = prep.splits["test"]
+
+    def latents(where):
+        streams = {k: to_torch(d[k], where) for k in ("text_gauss", "audio", "visual")}
+        vocab = to_torch(prep.vocab_embeddings, where)
+        with torch.no_grad():
+            return closed_form_latents(assemble_head_data(streams, MMB2_HEADS),
+                                       tree_map(lambda t: t.detach().to(where), dec["heads"]),
+                                       to_torch(d["text_weights"], where),
+                                       vocab[to_torch(d["text_ids"], where)])
+
+    got, want = latents(dev).cpu(), latents("cpu")
+    cf_abs = (got - want).abs().max().item()
+    over = ((got - want).abs() - (CF_ATOL + CF_RTOL * want.abs())).max().item()
+    log(f"[serve] closed_form_latents on the card against the CPU (686 x 300, the run's "
+        f"decoder): max abs {cf_abs:.3e}; finite {bool(torch.isfinite(got).all())}")
+    if over > 0 or not torch.isfinite(got).all():
+        raise AssertionError("closed_form_latents on the card disagrees with the CPU")
+
+    _reset_launches(K, T)
+    server = ClosedFormServer(dec, batch_sizes=SERVE_LADDER, sentiment_params=senti,
+                              word_embeddings=prep.vocab_embeddings, device=dev)
+    keys = ("text_ids", "text_weights", "text_gauss", "audio", "visual")
+    test = {k: d[k] for k in keys}
+    big = {k: np.concatenate([prep.splits["train"][k], prep.splits["valid"][k]])[:SERVE_BIG]
+           for k in keys}
+    reqs = {n: {k: v[:n] for k, v in test.items()} for n in (3, 64)}
+    reqs[686], reqs[SERVE_BIG] = test, big
+    server.warmup({k: v[:2] for k, v in test.items()})
+    out = {n: server(r) for n, r in reqs.items()}
+    checks = {}
+    for n in (64, 686):
+        lat_s, pred_s = server(stats_request(reqs[n]))
+        checks[f"stats_vs_raw_{n}"] = max(float(np.abs(lat_s - out[n][0]).max()),
+                                          float(np.abs(pred_s - out[n][1]).max()))
+    checks["rows3_vs_64"] = float(np.abs(out[3][0] - out[64][0][:3]).max())
+    half = SERVE_BIG // 2
+    halves = [server({k: v[sl] for k, v in big.items()})
+              for sl in (slice(0, half), slice(half, None))]
+    checks["above_ladder_vs_halves"] = max(
+        float(np.abs(np.concatenate([h[i] for h in halves]) - out[SERVE_BIG][i]).max())
+        for i in (0, 1))
+    finite = all(np.isfinite(o[i]).all() for o in out.values() for i in (0, 1))
+    log(f"[serve] server on the card, ladder {SERVE_LADDER}: max abs differences {checks} "
+        f"(limit {SERVE_ATOL}); outputs finite {finite}")
+    if not finite or max(checks.values()) > SERVE_ATOL:
+        raise AssertionError("the server on the card is not padding- or path-invariant")
+
+    def on_device(r):
+        return {k: (torch.as_tensor(v).to(dev) if v.dtype.kind == "f"
+                    else torch.as_tensor(v).long().to(dev)) for k, v in r.items()}
+
+    latency = {}
+    for n, r in reqs.items():
+        sr = stats_request(r)
+        forms = {"device_raw": on_device(r), "device_stats": on_device(sr), "host_raw": r,
+                 "host_stats": sr}
+        latency[n] = {name: _host_ms(torch, lambda f=f: server(f)) for name, f in forms.items()}
+        log(f"[serve] {n} rows: median of 8 ms " + ", ".join(
+            f"{name} {ms:.3f}" for name, ms in latency[n].items()))
+    launches = _read_launches(K, T)
+    if any(launches.values()):
+        raise AssertionError(f"the server launched {launches}: it runs no kernel of the port")
+    return {"launches": launches, "time_test": cf, "cf_abs": cf_abs, "checks": checks,
+            "latency_ms": latency}
+
+
+def run_warm_chunk(torch, K, T, tmp: str, dense: dict) -> dict:
+    """Phase 14: phase 10's configs through ``run_chunk`` with
+    ``infer_warm_start`` and ``infer_epochs_cap=1``: each config's inference
+    init against a 2-D ``closed_form_latents_from_stats`` of its own
+    decoder, the train fit against phase 10's, finite results, the infer
+    phases' seconds and K1's launches beside phase 10's."""
+    import numpy as np
+
+    import mmtpu_torch.sweep.runner as sweep_runner
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    configs = sweep_configs()
+    k = len(configs)
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")),
+                               pos_mode="shared", pos_dims=dims)
+    n_train, n_valid, n_test = (prep.sif_init[s].shape[0] for s in ("train", "valid", "test"))
+    warm = sweep_runner.closed_form_latents_from_stats
+    inits = []
+
+    def recording(dec, data, vocab, **kw):
+        inits.append((dec, data, vocab, kw, warm(dec, data, vocab, **kw)))
+        return inits[-1][-1]
+
+    sweep_runner.closed_form_latents_from_stats = recording
+    _reset_launches(K, T)
+    try:
+        chunk = sweep_runner.run_chunk(configs, prep, batch_size=64, device=dev,
+                                       return_embeddings=True, infer_warm_start=True,
+                                       infer_epochs_cap=1)
+    finally:
+        sweep_runner.closed_form_latents_from_stats = warm
+    launches = _read_launches(K, T)
+    init_abs = 0.0
+    for dec, data, vocab, kw, got in inits:
+        for i in range(k):
+            want = warm(tree_map(lambda t: t[i], dec), dict(data, pos_mask=data["pos_mask"][i, 0]),
+                        vocab, **kw)
+            init_abs = max(init_abs, (got[i] - want).abs().max().item())
+    steps = SWEEP_EPOCHS * -(-n_train // 64) + -(-n_valid // 512) + -(-n_test // 512)
+    base = dense["result"]
+    infer_s = {name: r.phase_s["valid_infer"] + r.phase_s["test_infer"]
+               for name, r in (("warm", chunk), ("phase10", base))}
+    ok = ~chunk.diverged
+    results = [chunk.embeddings[s] for s in ("train", "valid", "test")] + [
+        chunk.predictions, chunk.final_train_loss]
+    finite = bool(ok.any()) and all(np.isfinite(r[ok]).all() for r in results)
+    train_rel = float(np.max(np.abs(chunk.final_train_loss[ok] - base.final_train_loss[ok])
+                             / np.abs(base.final_train_loss[ok])))
+    log(f"[warm] chunk of {k}, inference from the closed form, capped at 1 epoch: "
+        f"{len(inits)} warm starts (valid, test), each config's init against its 2-D call: "
+        f"max abs {init_abs:.3e}; train loss against phase 10 max rel {train_rel:.3e}; "
+        f"diverged {int(chunk.diverged.sum())} (phase 10: {int(base.diverged.sum())}); "
+        f"finite {finite}; infer phases s warm {infer_s['warm']:.3f} against phase 10's "
+        f"uncapped {infer_s['phase10']:.3f}; K1 launches {launches['k1_fwd']} / "
+        f"{launches['k1_bwd']} against phase 10's {dense['launches']['k1_fwd']} / "
+        f"{dense['launches']['k1_bwd']}")
+    if len(inits) != 2 or init_abs > WARM_INIT_ATOL:
+        raise AssertionError("the warm starts differ from their per-config closed forms")
+    if launches["k1_fwd"] != steps or launches["k1_bwd"] != steps or launches["k2_adam"]:
+        raise AssertionError(f"the warm-started chunk launched {launches}, expected K1 {steps}")
+    if not finite or not np.array_equal(chunk.diverged, base.diverged) or train_rel > 1e-6:
+        raise AssertionError("the warm-started chunk's train fit or results are off")
+    return {"launches": launches, "init_abs": init_abs, "train_loss_rel": train_rel,
+            "infer_s": infer_s, "phase_s": chunk.phase_s}
+
+
+def run_alternating(torch, K, T, tmp: str) -> dict:
+    """Phase 15: ``fit_alternating`` on the MOSI train split (the bimodal
+    generator at 300 -> audio 74, visual 47; batch 32, ``ALT_EPOCHS``
+    epochs) on the card, K1's forward once per step and never its backward,
+    against the same fit on the CPU from the same parameters."""
+    from mmtpu_torch.convert import to_torch
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.models.legacy import init_audio_visual_generator
+    from mmtpu_torch.train.alternating import AlternatingFitSpec, fit_alternating
+    from mmtpu_torch.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")))
+    keys = ("text_ids", "text_weights", "text_mask", "audio", "audio_mask", "visual",
+            "visual_mask")
+    train = {k: prep.splits["train"][k] for k in keys}
+    params = init_audio_visual_generator(torch.Generator().manual_seed(0), prep.embed_dim,
+                                         prep.audio_dim, prep.visual_dim)
+    spec = AlternatingFitSpec(n_epochs=ALT_EPOCHS, batch_size=32)
+    steps = ALT_EPOCHS * -(-train["audio"].shape[0] // 32)
+
+    def fit(where, s=spec):
+        return fit_alternating(tree_map(lambda t: t.to(where), params), to_torch(train, where),
+                               to_torch(prep.vocab_embeddings, where), lr=ALT_LR,
+                               word_loss_weight=ALT_WORD_WEIGHT, spec=s)
+
+    fit(dev, dataclasses.replace(spec, n_epochs=1))  # untimed warm-up epoch
+    torch.cuda.synchronize()
+    _reset_launches(K, T)
+    t0 = time.perf_counter()
+    lat, _, losses = fit(dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_launches(K, T)
+    lat_c, _, losses_c = fit("cpu")
+    loss_rel = ((losses.cpu() - losses_c).abs() / losses_c.abs()).max().item()
+    lat_abs = (lat.cpu() - lat_c).abs().max().item()
+    log(f"[alternating] {ALT_EPOCHS} epochs x {steps // ALT_EPOCHS} batches of 32: "
+        f"{secs / ALT_EPOCHS:.4f} s/epoch on the card; launches {launches}; epoch losses "
+        f"{[round(x, 4) for x in losses.tolist()]}; against the CPU: losses max rel "
+        f"{loss_rel:.3e}, latents max abs {lat_abs:.3e}")
+    if launches != {"k1_fwd": steps, "k1_bwd": 0, "k2_adam": 0, "k2_sgd": 0}:
+        raise AssertionError(f"the alternating fit launched {launches}, expected K1-fwd {steps}")
+    if not (torch.isfinite(losses).all() and torch.isfinite(lat).all()
+            and loss_rel < ALT_LOSS_RTOL and lat_abs < ALT_LAT_ATOL):
+        raise AssertionError("the alternating fit on the card disagrees with the CPU")
+    return {"launches": launches, "s_per_epoch": secs / ALT_EPOCHS, "loss_rel": loss_rel,
+            "lat_abs": lat_abs, "losses": losses.tolist(), "prep": prep}
+
+
+def check_numeric_ops(torch, prep) -> dict:
+    """Phase 16: SIF, posenc and nearest words on the card against the CPU at
+    MOSI width (the train split, vocabulary 3016 x 300)."""
+    import numpy as np
+
+    import mmtpu_torch.ops as ops
+    from mmtpu_torch.analysis import closest_word_ids
+
+    dev = torch.device("cuda", 0)
+    tr = prep.splits["train"]
+    on = lambda x, where: torch.as_tensor(x).to(where)  # noqa: E731
+    errs = {}
+
+    def compare(name, fn):
+        got, want = fn(dev).cpu(), fn("cpu")
+        over = ((got - want).abs() - (OPS_ATOL + OPS_RTOL * want.abs())).max().item()
+        errs[name] = (got - want).abs().max().item()
+        if over > 0:
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+
+    ids = torch.as_tensor(tr["text_ids"]).long()
+    compare("seq_weights", lambda w: ops.seq_weights(ids.to(w), on(prep.word_weights, w)))
+    compare("sif_embedding", lambda w: ops.sif_embedding(on(prep.vocab_embeddings, w),
+                                                         ids.to(w), on(tr["text_weights"], w)))
+    for bug in (False, True):
+        compare(f"add_positional_embeddings bug_parity={bug}",
+                lambda w: ops.add_positional_embeddings(on(tr["audio"], w), 4, bug_parity=bug))
+    emb = ops.sif_embedding(on(prep.vocab_embeddings, "cpu"), ids, on(tr["text_weights"], "cpu"))
+    got = closest_word_ids(emb.to(dev), on(prep.vocab_embeddings, dev), k=5)
+    want = closest_word_ids(emb, prep.vocab_embeddings, k=5)
+    # ties aside, the same words: compare the picks' cosines in float64
+    e64 = emb.double() / emb.double().norm(dim=-1, keepdim=True)
+    v64 = torch.as_tensor(prep.vocab_embeddings).double()
+    sims = e64 @ (v64 / v64.norm(dim=-1, keepdim=True)).T
+    pick = lambda i: torch.gather(sims, 1, torch.as_tensor(i))  # noqa: E731
+    errs["closest_word_ids cosine"] = (pick(got) - pick(want)).abs().max().item()
+    same = float(np.mean(got == want))
+    log(f"[ops] card against CPU, max abs: {errs}; closest_word_ids identical share {same}")
+    if errs["closest_word_ids cosine"] > OPS_ATOL:
+        raise AssertionError("closest_word_ids on the card picks other words than the CPU")
+    return {"max_abs": errs, "closest_same_share": same}
+
+
 def check_small_agreement(torch) -> None:
     """Phase 7: small configs on the GPU (kernels) and on the CPU (plain
     versions) with the same draws must agree."""
@@ -1258,13 +1571,17 @@ def main() -> int:
     k2 = check_k2(torch, T, dev)
     with tempfile.TemporaryDirectory() as tmp:
         non_e2e = run_cli_path(torch, K, T, tmp, e2e=False)
-        e2e = run_cli_path(torch, K, T, tmp, e2e=True)
+        e2e = run_cli_path(torch, K, T, tmp, e2e=True, flags=["--time_test"])
         fused = run_fused_path(torch, K, T, tmp)
         lazy = run_lazy_path(torch, K, T, tmp)
         resume = run_curve_and_resume(torch, K, T, tmp, non_e2e)
         sweep = run_sweep_chunk(torch, K, T, tmp)
         fused_sweep = run_fused_chunks(torch, K, T, tmp, sweep)
         cli_sweep = run_cli_sweep(torch, tmp)
+        serving = run_serving(torch, K, T, tmp, e2e)
+        warm = run_warm_chunk(torch, K, T, tmp, sweep)
+        alternating = run_alternating(torch, K, T, tmp)
+        ops = check_numeric_ops(torch, alternating.pop("prep"))
     check_small_agreement(torch)
 
     t, kb = k1["times"], k1["bounds"]
@@ -1275,7 +1592,9 @@ def main() -> int:
                "sweep_fused_adam": fused_sweep["adam"]["launches"],
                "sweep_fused_sgd": fused_sweep["sgd"]["launches"],
                "sweep_cli": cli_sweep["launches"],
-               "sweep_cli_resumed": cli_sweep["launches_resumed"]}
+               "sweep_cli_resumed": cli_sweep["launches_resumed"],
+               "serving": serving["launches"], "sweep_warm_chunk": warm["launches"],
+               "alternating": alternating["launches"]}
     k1_path = {"fwd": e2e["launches"]["k1_fwd"], "bwd": e2e["launches"]["k1_bwd"]}
     record = {"kernels": [
         {"name": f"K1-{kind} angular_partition", "route": "cuda", "source": source,
@@ -1287,6 +1606,8 @@ def main() -> int:
          "ms_b512": t[512][kind], "plain_ms_b512": t[512][f"{kind}_plain"],
          "bound_ms_b512": kb[512][kind][0], "bound_by_b512": kb[512][kind][1],
          "launches_sweep_chunk": sweep["launches"][f"k1_{kind}"],
+         "launches_sweep_warm_chunk": warm["launches"][f"k1_{kind}"],
+         "launches_alternating": alternating["launches"][f"k1_{kind}"],
          "max_abs_err_sweep_rows": sweep["k1"][f"{kind}_err"],
          **{f"{key}_b{b}": val for b in st for key, val in (
              ("ms", st[b][kind]), ("plain_ms", st[b][f"{kind}_plain"]),
@@ -1325,7 +1646,11 @@ def main() -> int:
                   "sweep_fused": {k: {m: x for m, x in v.items() if m != "launches"}
                                   for k, v in fused_sweep.items()},
                   "sweep_cli": {k: v for k, v in cli_sweep.items()
-                                if not k.startswith("launches")}},
+                                if not k.startswith("launches")},
+                  "serving": {k: v for k, v in serving.items() if k != "launches"},
+                  "sweep_warm_chunk": {k: v for k, v in warm.items() if k != "launches"},
+                  "alternating": {k: v for k, v in alternating.items() if k != "launches"},
+                  "numeric_ops": ops},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

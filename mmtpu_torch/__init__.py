@@ -12,11 +12,17 @@ synthesis, numpy preparation).
 
 Ported and running: the MMB1/MMB2 latent fit and the e2e fit with their
 inference fits, the sentiment MLP, reports, artifacts and the CLI
-(:mod:`mmtpu_torch.run`), including ``--lazy_adam``, ``--validation_curve``
-and ``--resume_dir``; and one chunk of the hyperparameter sweep, K configs
-trained as one program with a leading config axis
-(:func:`mmtpu_torch.sweep.runner.run_chunk`).  What is not ported yet raises
-:func:`not_ported`.
+(:mod:`mmtpu_torch.run`), including ``--lazy_adam``, ``--validation_curve``,
+``--resume_dir`` and ``--time_test``; the hyperparameter sweep, chunks of K
+configs trained as one program with a leading config axis, and its driver
+and CLI (:mod:`mmtpu_torch.sweep`), including ``--infer_warm_start``; the
+closed form and serving (:mod:`mmtpu_torch.ops.closed_form`,
+:mod:`mmtpu_torch.train.warm_start`, :mod:`mmtpu_torch.serve`); the legacy
+models and the alternating driver (:mod:`mmtpu_torch.models.legacy`,
+:mod:`mmtpu_torch.train.alternating`); the SIF and positional-encoding ops
+of mmtpu's ``ops`` API (:mod:`mmtpu_torch.ops`) and
+:mod:`mmtpu_torch.analysis`.  What is not ported yet (multi-device, the aux
+CLI and utils) raises :func:`not_ported`.
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,7 @@ Usage::
         [--emotion E] [--optimizer {sgd,adam}] [--norm {layer_norm,batch_norm}]
         [--likelihood_weight F] [--data_dir DIR] [--out_root DIR] [--parity]
         [--seed N] [--no_artifacts] [--lazy_adam] [--validation_curve]
-        [--resume_dir DIR]
+        [--resume_dir DIR] [--time_test]
 
 ``--device`` (default ``cuda``) picks the device; asking for CUDA where
 there is none raises, nothing falls back to the CPU.  Accepted for
@@ -24,8 +24,9 @@ in every grid config) picks the joint fit or the likelihood-only one.
 valid split every 80 epochs and after the last) as ``embed_valid_loss``;
 ``--resume_dir DIR`` checkpoints the non-e2e training fit in epoch segments
 under ``DIR`` (``DIR_run<r>`` for each run when ``n_runs > 1``) and resumes
-from it.  Flags of parts not ported yet (``--time_test``, ``--mesh``,
-``--profile``) raise ``NotImplementedError``.
+from it.  ``--time_test`` times the closed-form estimate of the test split
+from the trained decoder and prints ``time taken:``.  Flags of parts not
+ported yet (``--mesh``, ``--profile``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -31,8 +31,10 @@ from mmtpu_torch.data.registry import load_dataset
 from mmtpu_torch.eval.report import full_loss, iemocap_loss, pom_loss
 from mmtpu_torch.io.artifacts import ArtifactStore
 from mmtpu_torch.io.checkpoint import Checkpointer
-from mmtpu_torch.models.decoder import NORM_CODES, init_decoder
+from mmtpu_torch.models.decoder import MMB1_HEADS, MMB2_HEADS, NORM_CODES, init_decoder
 from mmtpu_torch.models.sentiment import apply_sentiment, init_sentiment
+from mmtpu_torch.ops.closed_form import closed_form_latents
+from mmtpu_torch.serve import assemble_head_data
 from mmtpu_torch.train.chunked import fit_latents_checkpointed
 from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
 from mmtpu_torch.train.latents import LatentFitSpec, fit_latents, train_view
@@ -161,6 +163,39 @@ def _sentiment_phase(cfg: ExperimentConfig, prep: PreparedData, latents: Dict, s
     return {"before": before, "after": after}
 
 
+def time_closed_form(cfg: ExperimentConfig, prep: PreparedData, decoder, device,
+                     verbose: bool = True) -> Dict:
+    """The ``--time_test`` harness (``simplesif.py:808-889``): the
+    closed-form latents of the test split from the trained decoder, with
+    each head's streams concatenated as the reference's explicit cats
+    (``simplesif.py:820-842``).  One call warms up, the next is timed, the
+    device synchronised on either side.  Returns ``{"latency_s",
+    "n_utterances"}``."""
+    heads = MMB1_HEADS if cfg.unimodal else MMB2_HEADS
+    d = prep.splits["test"]
+    vocab = to_torch(prep.vocab_embeddings, device)
+    data = assemble_head_data({k: to_torch(d[k], device)
+                               for k in ("text_gauss", "audio", "visual")}, heads)
+    head_params = {h: decoder["heads"][h] for h in heads}
+    weights = to_torch(d["text_weights"], device)
+    sent = vocab[to_torch(d["text_ids"], device)]
+
+    def call():
+        with torch.no_grad():
+            return closed_form_latents(data, head_params, weights, sent)
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    call()
+    sync()
+    t0 = time.perf_counter()
+    lat = call()
+    sync()
+    dt = time.perf_counter() - t0
+    if verbose:
+        print("time taken:", dt)
+    return {"latency_s": dt, "n_utterances": int(lat.shape[0])}
+
+
 def run_experiment(
     cfg: ExperimentConfig,
     data_dir: str = ".",
@@ -193,11 +228,12 @@ def run_experiment(
     run restarted with the same directory goes on where it stopped).
     ``lazy_adam=True`` runs the training and inference fits with epoch-level
     lazy Adam (an Adam config only; the sweep's default in mmtpu).
+    ``time_test=True`` times the closed-form estimate of the test split from
+    the trained decoder (:func:`time_closed_form`) into
+    ``results["closed_form"]``.
     """
-    for flag, what, item in ((mesh is not None, "mesh", "queue 1, parallel"),
-                             (time_test, "time_test", "queue 1, closed form and serving")):
-        if flag:
-            raise not_ported(what, item)
+    if mesh is not None:
+        raise not_ported("mesh", "queue 1, parallel")
     if resume_dir is not None and cfg.e2e:
         raise ValueError("--resume_dir supports non-e2e fits only "
                          "(pass --e2e n or set e2e: false in the config)")
@@ -310,6 +346,8 @@ def run_experiment(
         "final_train_loss": final_loss,
         "diverged": diverged,
     }
+    if time_test:
+        results["closed_form"] = time_closed_form(cfg, prep, decoder, device, verbose)
     latents = {"train": train_embed, "valid": valid_embed, "test": test_embed}
     # semi-sup subsetting applies in both modes (simplesif.py:910-912)
     results["sentiment"] = _sentiment_phase(cfg, prep, latents, store, "post", draws, device,

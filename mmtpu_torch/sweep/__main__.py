@@ -14,10 +14,10 @@ grid columns) and ``results/<name>_summary.json`` (mmtpu's keys).
 
 ``--device`` defaults to ``cuda``; asking for CUDA where there is none
 raises, nothing falls back to the CPU.  ``--mesh`` and ``--multihost``
-(ROADMAP.md queue 1 item 5) and ``--infer_warm_start`` (item 4) raise
-``NotImplementedError``.  ``--pallas``, ``--no_pallas`` and ``--unroll`` are
-refused: on the card the angular partition always runs in the port's own
-kernel (K1), and the port's fits run no scan to unroll.
+(ROADMAP.md queue 1, parallel) raise ``NotImplementedError``.
+``--pallas``, ``--no_pallas`` and ``--unroll`` are refused: on the card the
+angular partition always runs in the port's own kernel (K1), and the port's
+fits run no scan to unroll.
 """
 
 from __future__ import annotations
@@ -63,9 +63,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--out", default="results")
     parser.add_argument("--resume_dir", help="chunk checkpoint dir (resume here)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--mesh", action="store_true", help="not ported (queue 1 item 5)")
+    parser.add_argument("--mesh", action="store_true", help="not ported (queue 1, parallel)")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported (queue 1 item 5)")
+                        help="not ported (queue 1, parallel)")
     parser.add_argument("--pallas", action="store_true", help="refused: " + _REFUSED["pallas"])
     parser.add_argument("--no_pallas", action="store_true",
                         help="refused: " + _REFUSED["no_pallas"])
@@ -83,7 +83,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="keep the reference's batch_size*8 for single-batch inference "
                              "fits (the default)")
     parser.add_argument("--infer_warm_start", action="store_true",
-                        help="not ported (queue 1 item 4)")
+                        help="start valid/test inference fits from the trained decoder's "
+                             "closed-form latent estimate in place of the SIF embedding; "
+                             "not reference parity")
     parser.add_argument("--infer_epochs", type=int, default=0,
                         help="cap inference-fit epochs (0 = the config's n_epochs, the "
                              "reference's semantics); not reference parity")
@@ -186,7 +188,7 @@ def _persist_top_k(args, records, configs) -> None:
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.mesh or args.multihost:
-        raise not_ported("--mesh" if args.mesh else "--multihost", "queue 1 item 5")
+        raise not_ported("--mesh" if args.mesh else "--multihost", "queue 1, parallel")
     from mmtpu_torch.data.pipeline import prepare_device_data
     from mmtpu_torch.data.registry import load_dataset
     from mmtpu_torch.sweep.runner import run_sweep

@@ -39,11 +39,9 @@ from mmtpu_torch.train.optim import OPT_CODES
 @dataclasses.dataclass(frozen=True)
 class SweepStatics:
     """Maxima and flags shared by every config of a sweep chunk (the fields
-    of :class:`mmtpu.sweep.pack.SweepStatics` that the port runs; mmtpu's
-    ``infer_warm_start`` is an argument of
-    :func:`mmtpu_torch.sweep.runner.run_chunk` that raises until it is
-    ported, and the TPU's ``unroll`` and ``use_pallas`` have no counterpart:
-    the port runs no scan, and K1 is always the kernel on the card)."""
+    of :class:`mmtpu.sweep.pack.SweepStatics` that the port runs; the TPU's
+    ``unroll`` and ``use_pallas`` have no counterpart: the port runs no
+    scan, and K1 is always the kernel on the card)."""
 
     n_epochs_max: int
     n_sentiment_epochs_max: int
@@ -70,6 +68,10 @@ class SweepStatics:
     infer_batch_clamp: bool = False
     # the train fit's decoder-weight updates in kernel K2 (train/fused.py)
     fused_dec_update: bool = False
+    # start the valid/test inference fits from the trained decoder's
+    # closed-form estimate (train/warm_start.py) in place of the SIF
+    # embedding; not reference parity, pair with infer_epochs_cap
+    infer_warm_start: bool = False
     # cap the inference fits' epochs (0: the config's own n_epochs, the
     # reference's semantics); opt-in, not reference parity
     infer_epochs_cap: int = 0

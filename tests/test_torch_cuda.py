@@ -276,3 +276,78 @@ def test_fused_fit_e2e_matches_cpu(cuda_device, kind):
     card, cpu = fits
     np.testing.assert_allclose(card[3].cpu().numpy(), cpu[3].numpy(), rtol=2e-4)
     np.testing.assert_allclose(card[0].cpu().numpy(), cpu[0].numpy(), atol=2e-4)
+
+
+def _closed_form_inputs(gen, n=37, L=6, V=50, D=16, A=5, Vis=4):
+    """A decoder, a vocabulary and a raw request, drawn on the CPU."""
+    from mmtpu_torch.models.decoder import init_decoder
+
+    vocab = torch.randn(V, D, generator=gen)
+    ids = torch.randint(0, V, (n, L), generator=gen)
+    req = {"text_ids": ids, "text_weights": torch.rand(n, L, generator=gen) + 0.05,
+           "text_gauss": vocab[ids], "audio": torch.randn(n, L, A, generator=gen),
+           "visual": torch.randn(n, L, Vis, generator=gen)}
+    return init_decoder(gen, D, A, Vis, text_dim=D), vocab, req
+
+
+@pytest.mark.cuda
+def test_closed_form_and_server_match_cpu(cuda_device):
+    """``closed_form_latents`` on the card against the CPU on copies of the
+    same tensors (rtol 1e-5, atol 1e-6), and ``ClosedFormServer`` on the
+    card against the one on the CPU, raw and stats requests, on the ladder
+    and above it (atol 1e-5)."""
+    from mmtpu_torch.models.decoder import MMB2_HEADS
+    from mmtpu_torch.models.sentiment import init_sentiment
+    from mmtpu_torch.ops.closed_form import closed_form_latents
+    from mmtpu_torch.serve import ClosedFormServer, assemble_head_data, stats_request
+    from mmtpu_torch.tree import tree_map
+
+    gen = torch.Generator().manual_seed(5)
+    dec, vocab, req = _closed_form_inputs(gen)
+    senti = init_sentiment(gen, 16, 8, 1)
+
+    def latents(dev):
+        r = tree_map(lambda t: t.to(dev), req)
+        return closed_form_latents(assemble_head_data(r, MMB2_HEADS),
+                                   tree_map(lambda t: t.to(dev), dec["heads"]),
+                                   r["text_weights"], r["text_gauss"])
+
+    torch.testing.assert_close(latents(cuda_device).cpu(), latents("cpu"), rtol=1e-5, atol=1e-6)
+    servers = {dev: ClosedFormServer(dec, batch_sizes=(8, 16), sentiment_params=senti,
+                                     word_embeddings=vocab, device=dev)
+               for dev in (cuda_device, "cpu")}
+    np_req = {k: v.numpy() for k, v in req.items()}
+    for r in (np_req, stats_request(np_req), {k: v[:5] for k, v in np_req.items()}):
+        (lat_g, pred_g), (lat_c, pred_c) = (s(r) for s in servers.values())
+        np.testing.assert_allclose(lat_g, lat_c, atol=1e-5)
+        np.testing.assert_allclose(pred_g, pred_c, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_alternating_fit_launches_k1_forward_only(cuda_device):
+    """``fit_alternating`` on the card: one K1 forward per step and no
+    backward (its latents are constants of the steps), and the CPU's result
+    (losses rtol 2e-4, latents atol 2e-4)."""
+    from mmtpu_torch.models.legacy import init_audio_visual_generator
+    from mmtpu_torch.train.alternating import AlternatingFitSpec, fit_alternating
+    from mmtpu_torch.tree import tree_map
+
+    gen = torch.Generator().manual_seed(6)
+    _, vocab, req = _closed_form_inputs(gen)
+    data = {"text_ids": req["text_ids"], "text_weights": req["text_weights"],
+            "text_mask": torch.ones(37, 6), "audio": req["audio"],
+            "audio_mask": torch.ones(37, 6, 5), "visual": req["visual"],
+            "visual_mask": torch.ones(37, 6, 4)}
+    params = init_audio_visual_generator(gen, 16, 5, 4)
+    spec = AlternatingFitSpec(n_epochs=2, batch_size=8)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        move = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+        before = dict(K.LAUNCHES)
+        out[str(dev)] = fit_alternating(move(params), move(data), vocab.to(dev), lr=1e-2,
+                                        word_loss_weight=0.3, spec=spec)
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"fwd": 2 * 5, "bwd": 0} if dev != "cpu" else {"fwd": 0, "bwd": 0})
+    (lat_g, _, loss_g), (lat_c, _, loss_c) = out.values()
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=2e-4, atol=0)
+    torch.testing.assert_close(lat_g.cpu(), lat_c, rtol=0, atol=2e-4)

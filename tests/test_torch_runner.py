@@ -164,11 +164,26 @@ def test_divergence_is_recorded(tmp_path):
     assert (tmp_path / "div" / "config_0_run_0" / "post" / "test_results_after.json").is_file()
 
 
-@pytest.mark.parametrize("kw", [{"time_test": True}, {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_options_raise(kw):
     cfg = ExperimentConfig(dataset="mosi", e2e=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md: queue 1, parallel"):
         trunner.run_experiment(cfg, prep=_tiny_prep(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("unimodal", [False, True], ids=["mmb2", "mmb1"])
+def test_run_experiment_time_test(unimodal, capsys):
+    """``time_test=True`` runs (it raised before the closed form was ported):
+    ``results["closed_form"]`` holds a latency and the test split's rows."""
+    prep = _tiny_prep()
+    cfg = ExperimentConfig(dataset="mosi", n_epochs=1, n_sentiment_epochs=1, batch_size=8,
+                           e2e=False, unimodal=unimodal)
+    res = trunner.run_experiment(cfg, prep=prep, device="cpu", save_artifacts=False,
+                                 time_test=True)
+    cf = res["closed_form"]
+    assert cf["n_utterances"] == prep.splits["test"]["audio"].shape[0] == 12
+    assert cf["latency_s"] > 0
+    assert "time taken:" in capsys.readouterr().out
 
 
 def _cfg_file(tmp_path, **kw):
@@ -205,13 +220,16 @@ def test_cli_refuses(tmp_path, monkeypatch, argv, exc):
 
 def test_port_runs_without_jax(tmp_path):
     """In a process where neither jax nor mmtpu can be imported, the port
-    imports and runs a tiny experiment, non-e2e and e2e."""
+    imports (the closed form, serving and the legacy modules included) and
+    runs a tiny experiment, non-e2e and e2e, with ``time_test``."""
     code = f"""
 import sys
 sys.modules["jax"] = None
 sys.modules["mmtpu"] = None
 import mmtpu_torch, mmtpu_torch.runner, mmtpu_torch.run, mmtpu_torch.kernels.angular
-import mmtpu_torch.kernels.decoder_update, mmtpu_torch.train.fused, mmtpu_torch.ops.joint
+import mmtpu_torch.kernels.decoder_update, mmtpu_torch.train.fused, mmtpu_torch.ops
+import mmtpu_torch.serve, mmtpu_torch.analysis, mmtpu_torch.models.legacy
+import mmtpu_torch.train.alternating, mmtpu_torch.train.warm_start
 from mmtpu_torch.config import ExperimentConfig
 from mmtpu_torch.data.pipeline import prepare_device_data
 from mmtpu_torch.data.synthetic import synthesize_dataset
@@ -222,8 +240,9 @@ for e2e in (False, True):
     cfg = ExperimentConfig(dataset="mosi", n_epochs=1, n_sentiment_epochs=1, batch_size=5,
                            e2e=e2e, config_name="nojax")
     res = mmtpu_torch.runner.run_experiment(cfg, out_root={str(tmp_path)!r}, prep=prep,
-                                            verbose=False, device="cpu")
+                                            verbose=False, device="cpu", time_test=True)
     assert res["final_train_loss"] == res["final_train_loss"]
+    assert res["closed_form"]["n_utterances"] == 6
 assert sys.modules["jax"] is None and sys.modules["mmtpu"] is None
 print("ok")
 """

@@ -259,9 +259,8 @@ def test_cli_writes_mmtpu_columns(tmp_path, tiny_registry, references):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--mesh"], NotImplementedError, "queue 1 item 5"),
-    (["--multihost"], NotImplementedError, "queue 1 item 5"),
-    (["--infer_warm_start"], NotImplementedError, "queue 1 item 4"),
+    (["--mesh"], NotImplementedError, "queue 1, parallel"),
+    (["--multihost"], NotImplementedError, "queue 1, parallel"),
     (["--pallas"], SystemExit, "always runs in the port's kernel K1"),
     (["--no_pallas"], SystemExit, "always runs in the port's kernel K1"),
     (["--unroll", "2"], SystemExit, "not scans"),
@@ -275,6 +274,26 @@ def test_cli_refuses_what_the_port_has_not(flags, error, match, tmp_path, tiny_r
     text = capsys.readouterr().err if error is SystemExit else str(exc.value)
     assert match in text
     assert not (tmp_path / "results").exists()
+
+
+def test_cli_infer_warm_start(tmp_path, tiny_registry):
+    """``--infer_warm_start --infer_epochs 1`` (refused before the closed
+    form was ported) runs the grid's first two configs, cut to 2 epochs,
+    to finite rows."""
+    from mmtpu_torch.config import make_grid
+
+    (tmp_path / "cfgs").mkdir()
+    for c in make_grid()[:2]:
+        with open(tmp_path / "cfgs" / f"config_{c['config_num']}.json", "w") as f:
+            json.dump(dict(c, n_epochs=2, n_sentiment_epochs=2), f)
+    argv = ["mosi", "--configs_dir", str(tmp_path / "cfgs"), "--batch_size", "8", "--device",
+            "cpu", "--data_dir", str(tmp_path / "nodata"), "--out", str(tmp_path / "results"),
+            "--name", "warm", "--infer_warm_start", "--infer_epochs", "1"]
+    assert cli_main(argv) == 0
+    with open(tmp_path / "results" / "warm.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 2
+    assert all(np.isfinite(float(r[m])) for r in rows for m in ("final_train_loss", "mae"))
 
 
 def test_metric_schema_and_bucket_ids(prep):

@@ -31,11 +31,14 @@ from mmtpu.train.optim import OPT_CODES
 import mmtpu_torch.eval.metrics as tmetrics
 from mmtpu_torch.convert import to_numpy, to_torch
 from mmtpu_torch.models.sentiment import apply_sentiment, init_sentiment
-from mmtpu_torch.sweep.runner import SweepDraws, run_chunk, run_config_alone
+from mmtpu.sweep import run_sweep as j_run_sweep
+from mmtpu_torch.sweep.runner import (SweepDraws, _draws_for, _execute, chunk_statics, run_chunk,
+                                      run_config_alone)
 from mmtpu_torch.train import latents as tl
 from mmtpu_torch.train.sentiment import SentimentFitSpec, fit_sentiment
 from tests.test_torch_runner import REPO, _perms
-from tests.test_torch_sweep import BATCH, grid, one_torch_thread, tiny_prep  # noqa: F401
+from tests.test_torch_sweep import (  # noqa: F401
+    BATCH, grid, jax_draws, one_torch_thread, tiny_prep)
 
 
 @pytest.fixture(scope="module")
@@ -183,12 +186,48 @@ def test_mixed_optimizers_raise(prep):
         _chunk(configs, prep)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"infer_warm_start": True}, "item 4"), ({"mesh": object()}, "item 5"),
-])
-def test_unported_options_raise(prep, kw, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
+def test_unported_options_raise(prep, kw):
+    with pytest.raises(NotImplementedError, match="queue 1, parallel"):
         _chunk(grid("adam"), prep, **kw)
+
+
+def test_warm_started_chunk_matches_mmtpu(prep):
+    """``infer_warm_start`` with an epoch cap (it raised before the closed
+    form was ported): an e2e lazy-Adam MMB2 chunk against
+    ``mmtpu.sweep.run_sweep`` with mmtpu's draws."""
+    configs = grid("adam", k=3, n_epochs=(3, 3, 3))
+    opts = dict(infer_warm_start=True, infer_epochs_cap=1)
+    want = j_run_sweep(configs, prep, batch_size=BATCH, seed=0, verbose=False,
+                       return_embeddings=True, **opts)
+    got = _chunk(configs, prep, draws=jax_draws(configs), **opts)
+    assert not got.diverged.any() and np.isfinite(want.final_train_loss).all()
+    np.testing.assert_allclose(got.final_train_loss, want.final_train_loss, rtol=2e-4)
+    for split in ("train", "valid", "test"):
+        np.testing.assert_allclose(got.embeddings[split], want.embeddings[split], atol=2e-4,
+                                   err_msg=split)
+    for name in want.metrics:
+        np.testing.assert_allclose(got.metrics[name], want.metrics[name], atol=2e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("unimodal", [False, True], ids=["mmb2", "mmb1"])
+def test_warm_started_chunk_equals_configs_alone(prep, unimodal):
+    """Each config's inference fits start from the closed form of its own
+    trained decoder: under the config axis as in a single-config run, and
+    not from the SIF init (the valid and test embeddings move)."""
+    configs = grid("sgd", k=3, n_epochs=(2, 2, 2))
+    opts = dict(infer_warm_start=True, infer_epochs_cap=1)
+    chunk = _chunk(configs, prep, unimodal=unimodal, **opts)
+    cold = _chunk(configs, prep, unimodal=unimodal, infer_epochs_cap=1)
+    assert not np.allclose(chunk.embeddings["test"], cold.embeddings["test"], atol=1e-3)
+    np.testing.assert_array_equal(chunk.embeddings["train"], cold.embeddings["train"])
+    for i, c in enumerate(configs):
+        statics = chunk_statics([c], prep, batch_size=BATCH, unimodal=unimodal,
+                                lazy_adam=True, **opts)
+        alone = _execute([c], prep, statics, _draws_for([c], None, 0), torch.device("cpu"),
+                         True, config_axis=False)
+        _assert_config(chunk, i, alone, rtol=1e-5)
 
 
 def test_runs_on_cuda_by_default(prep):
