@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    and 512 and K2's (Adam and SGD; at any depth) from the runtime's
    occupancy query;
 2. kernel K1 (angular partition, forward and backward) against its plain
-   PyTorch versions at the main path's shapes, plus a ragged shape and a
+   PyTorch versions at the main path's shapes (64, 512 and 32 rows: the
+   fits' batches and the alternating fit's), plus a ragged shape and a
    zero latent row, with the forward and the backward each called twice and
    required bit for bit equal; kernel and plain times at 64 and 512 rows
    (device time per call from queued bursts, and the median of single
@@ -83,16 +84,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    686 rows, a 3-row request against the 64-row one, and a 1500-row request
    (above the ladder) against its two halves agree within 1e-5; each
    request size's latency, median of 8, device- and host-resident, raw and
-   stats;
+   stats; one device-resident 686-row request of each form traced under
+   ``torch.profiler``: its kernels, its device-busy time and its share of
+   the traced wall time;
 14. the warm-started chunk: phase 10's configs through ``run_chunk`` with
    ``infer_warm_start`` and ``infer_epochs_cap=1``: each config's inference
    init against a 2-D ``closed_form_latents_from_stats`` of its own decoder
-   (1e-5), the train fit as phase 10's, finite results, the infer phases'
-   seconds and K1's launches (42 + 3 of each kind) beside phase 10's;
+   (1e-5), the train fit as phase 10's, finite results, K1's launches (42
+   + 3 of each kind) beside phase 10's; then phase 10's configs uncapped
+   and the warm-started chunk again, both already warm, for the infer
+   phases' seconds side by side;
 15. the legacy alternating fit, ``fit_alternating`` on the MOSI train split
    (the bimodal generator, 3 epochs of 41 batches of 32): K1's forward 123
    times and its backward never; against the same fit on the CPU (losses
-   rtol 2e-4, latents atol 2e-4); seconds per epoch;
+   rtol 2e-4, latents atol 2e-4); K1's forward, through the wrapper the fit
+   calls, on the fit's first and last (padded) 32-row batches of its final
+   latents against its plain version at phase 2's gates; seconds per epoch;
 16. SIF, posenc and nearest words (``mmtpu_torch.ops``,
    ``mmtpu_torch.analysis``) on the card against the CPU at MOSI width.
 
@@ -121,10 +128,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# (B, D, V, zero_row): the train batch, the inference batch, a large batch,
-# a ragged shape, and a zero latent row (exercises the 1e-8 cosine clamp)
-SHAPES = [(64, 300, 3016, False), (512, 300, 3016, False), (2048, 300, 3016, False),
-          (37, 300, 3001, False), (64, 300, 3016, True)]
+# (B, D, V, zero_row): the train batch, the inference batch, the alternating
+# fit's batch, a large batch, a ragged shape, and a zero latent row (exercises
+# the 1e-8 cosine clamp)
+SHAPES = [(64, 300, 3016, False), (512, 300, 3016, False), (32, 300, 3016, False),
+          (2048, 300, 3016, False), (37, 300, 3001, False), (64, 300, 3016, True)]
 FWD_SUM_REL, FWD_RTOL = 1e-5, 1e-5  # the TPU kernel's gate (bench.py) and tests
 GRAD_MAX_REL, GRAD_ATOL = 1e-3, 1e-5
 # (B, D, F) of K2: the train batch at the stacked MOSI head width (pos 2), the
@@ -1216,6 +1224,71 @@ def _host_ms(torch, fn, reps: int = 8) -> float:
     return statistics.median(times)
 
 
+# traces one request of each form (raw, stats), moved to the card first,
+# through a ClosedFormServer built from the payload at argv[1], in a fresh
+# process: a
+# process's second torch.profiler session records no device event, and phase 3
+# holds this one's first.  Prints, per form, the device events per call, their
+# summed device time per call (kernels and copies) and the traced wall time
+# per call; the busy times are null where the trace holds no device event.
+_SERVE_TRACE = """
+import json, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+from mmtpu_torch.serve import ClosedFormServer
+torch.backends.cuda.matmul.allow_tf32 = False
+p = torch.load(sys.argv[1], weights_only=False)
+server = ClosedFormServer(p["dec"], batch_sizes=p["ladder"], sentiment_params=p["senti"],
+                          word_embeddings=p["vocab"], device="cuda")
+forms = {name: {k: torch.as_tensor(v).to("cuda", torch.float32 if v.dtype.kind == "f"
+                                          else torch.int64) for k, v in r.items()}
+         for name, r in p["forms"].items()}
+reps, walls = 8, {}
+for f in forms.values():
+    server(f), server(f)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for name, f in forms.items():
+        with record_function("serve_" + name):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                server(f)
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t0) * 1e3 / reps
+events, cuda = prof.events(), torch.autograd.DeviceType.CUDA
+device = [e for e in events if e.device_type == cuda and not e.name.startswith("serve_")]
+out = {}
+for name in forms:
+    span = next(e.time_range for e in events
+                if e.name == "serve_" + name and e.device_type != cuda)
+    inside = [e for e in device if span.start <= e.time_range.start <= span.end]
+    busy = sum(e.time_range.elapsed_us() for e in inside) / 1e3 / reps
+    out[name] = {"device_events": len(inside) / reps, "wall_ms": walls[name],
+                 "busy_ms": busy if inside else None,
+                 "busy_share": busy / walls[name] if inside else None}
+print(json.dumps(out))
+"""
+
+
+def trace_serving(torch, tmp: str, payload: dict) -> dict:
+    """Runs ``_SERVE_TRACE`` on ``payload`` in a subprocess; its result."""
+    path = os.path.join(tmp, "serve_trace.pt")
+    torch.save(payload, path)
+    proc = subprocess.run([sys.executable, "-c", _SERVE_TRACE, path], cwd=tmp,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the serving trace exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _on_device(torch, r: dict, dev) -> dict:
+    """A request's arrays as device tensors (float32 or int64)."""
+    return {k: (torch.as_tensor(v).to(dev) if v.dtype.kind == "f"
+                else torch.as_tensor(v).long().to(dev)) for k, v in r.items()}
+
+
 def run_serving(torch, K, T, tmp: str, e2e: dict) -> dict:
     """Phase 13: ``--time_test`` of phase 5's run; that run's decoder through
     ``closed_form_latents`` on the card against the CPU; a
@@ -1288,31 +1361,39 @@ def run_serving(torch, K, T, tmp: str, e2e: dict) -> dict:
     if not finite or max(checks.values()) > SERVE_ATOL:
         raise AssertionError("the server on the card is not padding- or path-invariant")
 
-    def on_device(r):
-        return {k: (torch.as_tensor(v).to(dev) if v.dtype.kind == "f"
-                    else torch.as_tensor(v).long().to(dev)) for k, v in r.items()}
-
     latency = {}
     for n, r in reqs.items():
         sr = stats_request(r)
-        forms = {"device_raw": on_device(r), "device_stats": on_device(sr), "host_raw": r,
-                 "host_stats": sr}
+        forms = {"device_raw": _on_device(torch, r, dev),
+                 "device_stats": _on_device(torch, sr, dev), "host_raw": r, "host_stats": sr}
         latency[n] = {name: _host_ms(torch, lambda f=f: server(f)) for name, f in forms.items()}
         log(f"[serve] {n} rows: median of 8 ms " + ", ".join(
             f"{name} {ms:.3f}" for name, ms in latency[n].items()))
     launches = _read_launches(K, T)
     if any(launches.values()):
         raise AssertionError(f"the server launched {launches}: it runs no kernel of the port")
+    trace = trace_serving(torch, tmp, {
+        "dec": tree_map(lambda t: t.detach().cpu(), dec),
+        "senti": tree_map(lambda t: t.detach().cpu(), senti),
+        "vocab": prep.vocab_embeddings, "ladder": SERVE_LADDER,
+        "forms": {"device_raw": test, "device_stats": stats_request(test)}})
+    for form, t in trace.items():
+        busy = ("not measured (the trace holds no device event)" if t["busy_ms"] is None
+                else f"device busy {t['busy_ms']:.3f} ms, {100 * t['busy_share']:.1f} % of it")
+        log(f"[serve] 686 rows, {form}, traced (torch.profiler, 8 calls): "
+            f"{t['device_events']:.0f} device events per call, wall {t['wall_ms']:.3f} ms, {busy}")
     return {"launches": launches, "time_test": cf, "cf_abs": cf_abs, "checks": checks,
-            "latency_ms": latency}
+            "latency_ms": latency, "trace_686": trace}
 
 
 def run_warm_chunk(torch, K, T, tmp: str, dense: dict) -> dict:
     """Phase 14: phase 10's configs through ``run_chunk`` with
     ``infer_warm_start`` and ``infer_epochs_cap=1``: each config's inference
     init against a 2-D ``closed_form_latents_from_stats`` of its own
-    decoder, the train fit against phase 10's, finite results, the infer
-    phases' seconds and K1's launches beside phase 10's."""
+    decoder, the train fit against phase 10's, finite results, and K1's
+    launches beside phase 10's.  Then phase 10's configs uncapped and the
+    warm-started chunk again, both already warm, for the infer phases'
+    seconds: phase 10's own call was the first of its shapes."""
     import numpy as np
 
     import mmtpu_torch.sweep.runner as sweep_runner
@@ -1351,8 +1432,13 @@ def run_warm_chunk(torch, K, T, tmp: str, dense: dict) -> dict:
             init_abs = max(init_abs, (got[i] - want).abs().max().item())
     steps = SWEEP_EPOCHS * -(-n_train // 64) + -(-n_valid // 512) + -(-n_test // 512)
     base = dense["result"]
+    steady = {"uncapped": sweep_runner.run_chunk(configs, prep, batch_size=64, device=dev,
+                                                 return_embeddings=True),
+              "warm": sweep_runner.run_chunk(configs, prep, batch_size=64, device=dev,
+                                             return_embeddings=True, infer_warm_start=True,
+                                             infer_epochs_cap=1)}
     infer_s = {name: r.phase_s["valid_infer"] + r.phase_s["test_infer"]
-               for name, r in (("warm", chunk), ("phase10", base))}
+               for name, r in (*steady.items(), ("phase10_first", base))}
     ok = ~chunk.diverged
     results = [chunk.embeddings[s] for s in ("train", "valid", "test")] + [
         chunk.predictions, chunk.final_train_loss]
@@ -1363,9 +1449,10 @@ def run_warm_chunk(torch, K, T, tmp: str, dense: dict) -> dict:
         f"{len(inits)} warm starts (valid, test), each config's init against its 2-D call: "
         f"max abs {init_abs:.3e}; train loss against phase 10 max rel {train_rel:.3e}; "
         f"diverged {int(chunk.diverged.sum())} (phase 10: {int(base.diverged.sum())}); "
-        f"finite {finite}; infer phases s warm {infer_s['warm']:.3f} against phase 10's "
-        f"uncapped {infer_s['phase10']:.3f}; K1 launches {launches['k1_fwd']} / "
-        f"{launches['k1_bwd']} against phase 10's {dense['launches']['k1_fwd']} / "
+        f"finite {finite}; infer phases s, both warm: warm-started {infer_s['warm']:.3f}, "
+        f"uncapped {infer_s['uncapped']:.3f} ({infer_s['warm'] / infer_s['uncapped']:.3f}x; "
+        f"phase 10's first call {infer_s['phase10_first']:.3f}); K1 launches "
+        f"{launches['k1_fwd']} / {launches['k1_bwd']} against phase 10's {dense['launches']['k1_fwd']} / "
         f"{dense['launches']['k1_bwd']}")
     if len(inits) != 2 or init_abs > WARM_INIT_ATOL:
         raise AssertionError("the warm starts differ from their per-config closed forms")
@@ -1424,8 +1511,34 @@ def run_alternating(torch, K, T, tmp: str) -> dict:
     if not (torch.isfinite(losses).all() and torch.isfinite(lat).all()
             and loss_rel < ALT_LOSS_RTOL and lat_abs < ALT_LAT_ATOL):
         raise AssertionError("the alternating fit on the card disagrees with the CPU")
+    k1_err = check_alternating_k1(torch, K, lat, to_torch(prep.vocab_embeddings, dev))
     return {"launches": launches, "s_per_epoch": secs / ALT_EPOCHS, "loss_rel": loss_rel,
-            "lat_abs": lat_abs, "losses": losses.tolist(), "prep": prep}
+            "lat_abs": lat_abs, "losses": losses.tolist(), "k1_fwd_err": k1_err, "prep": prep}
+
+
+def check_alternating_k1(torch, K, lat, voc) -> float:
+    """K1's forward through the wrapper the alternating fit calls
+    (``angular_partition``) on the fit's first and last 32-row batches of
+    its final latents (the last is padded with row 0, as the fit pads it),
+    against the plain version at phase 2's gates: the fit's own check cannot
+    see Z, whose term enters its loss at weight ``ALT_WORD_WEIGHT``.
+    Returns the largest absolute error."""
+    n = lat.shape[0]
+    tail = n - (n - 1) % 32 - 1
+    batches = {"first": lat[:32],
+               "last": torch.cat([lat[tail:], lat[:1].expand(32 - (n - tail), -1)])}
+    err = 0.0
+    for name, batch in batches.items():
+        z_k = K.angular_partition(batch, voc)
+        z_p = K.angular_partition_ref(batch, voc)
+        sum_rel = abs(z_k.sum().item() - z_p.sum().item()) / abs(z_p.sum().item())
+        elem_rel = ((z_k - z_p).abs() / z_p.abs()).max().item()
+        err = max(err, (z_k - z_p).abs().max().item())
+        log(f"[alternating] K1-fwd on the fit's {name} batch (rows {tuple(batch.shape)}): "
+            f"sum rel {sum_rel:.3e}, elem rel {elem_rel:.3e}")
+        if not (z_k.shape == (32, 1) and sum_rel < FWD_SUM_REL and elem_rel < FWD_RTOL):
+            raise AssertionError(f"K1 forward disagrees on the alternating fit's {name} batch")
+    return err
 
 
 def check_numeric_ops(torch, prep) -> dict:
@@ -1608,6 +1721,7 @@ def main() -> int:
          "launches_sweep_chunk": sweep["launches"][f"k1_{kind}"],
          "launches_sweep_warm_chunk": warm["launches"][f"k1_{kind}"],
          "launches_alternating": alternating["launches"][f"k1_{kind}"],
+         **({"max_abs_err_alternating_rows": alternating["k1_fwd_err"]} if kind == "fwd" else {}),
          "max_abs_err_sweep_rows": sweep["k1"][f"{kind}_err"],
          **{f"{key}_b{b}": val for b in st for key, val in (
              ("ms", st[b][kind]), ("plain_ms", st[b][f"{kind}_plain"]),

@@ -18,7 +18,7 @@ Every leaf may carry a leading config axis (the sweep's K configs): latents
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 
@@ -55,6 +55,18 @@ _NORM_EPS = 1e-5  # torch LayerNorm / BatchNorm1d default
 def head_segments(head: str) -> Tuple[str, ...]:
     """Base-stream composition of a head ("text" = the Gaussian text stream)."""
     return _SEGMENTS[head]
+
+
+def assemble_head_data(batch: Mapping[str, torch.Tensor],
+                       heads: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """Each head's observations, its base streams concatenated on the feature
+    axis in the decoder's segment order (``simplesif.py:820-830``)."""
+    streams = {"text": batch["text_gauss"], "audio": batch["audio"], "visual": batch["visual"]}
+    out = {}
+    for h in heads:
+        parts = [streams[s] for s in head_segments(h)]
+        out[h] = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    return out
 
 
 def head_dims(head: str, text_dim: int, audio_dim: int, visual_dim: int) -> int:

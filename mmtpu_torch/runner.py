@@ -31,10 +31,10 @@ from mmtpu_torch.data.registry import load_dataset
 from mmtpu_torch.eval.report import full_loss, iemocap_loss, pom_loss
 from mmtpu_torch.io.artifacts import ArtifactStore
 from mmtpu_torch.io.checkpoint import Checkpointer
-from mmtpu_torch.models.decoder import MMB1_HEADS, MMB2_HEADS, NORM_CODES, init_decoder
+from mmtpu_torch.models.decoder import (MMB1_HEADS, MMB2_HEADS, NORM_CODES, assemble_head_data,
+                                        init_decoder)
 from mmtpu_torch.models.sentiment import apply_sentiment, init_sentiment
 from mmtpu_torch.ops.closed_form import closed_form_latents
-from mmtpu_torch.serve import assemble_head_data
 from mmtpu_torch.train.chunked import fit_latents_checkpointed
 from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
 from mmtpu_torch.train.latents import LatentFitSpec, fit_latents, train_view

@@ -25,23 +25,11 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from mmtpu_torch.models.decoder import head_segments
+from mmtpu_torch.models.decoder import assemble_head_data
 from mmtpu_torch.models.sentiment import apply_sentiment
 from mmtpu_torch.ops.closed_form import closed_form_latents
 from mmtpu_torch.train.warm_start import closed_form_latents_from_stats
 from mmtpu_torch.tree import tree_map
-
-
-def assemble_head_data(batch: Mapping[str, torch.Tensor],
-                       heads: Sequence[str]) -> Dict[str, torch.Tensor]:
-    """Each head's observations, its base streams concatenated on the feature
-    axis in the decoder's segment order (``simplesif.py:820-830``)."""
-    streams = {"text": batch["text_gauss"], "audio": batch["audio"], "visual": batch["visual"]}
-    out = {}
-    for h in heads:
-        parts = [streams[s] for s in head_segments(h)]
-        out[h] = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-    return out
 
 
 def stats_request(batch: Mapping[str, np.ndarray],
