@@ -101,15 +101,32 @@ Phases, in order; any failure raises and the exit code is not 0:
    calls, on the fit's first and last (padded) 32-row batches of its final
    latents against its plain version at phase 2's gates; seconds per epoch;
 16. SIF, posenc and nearest words (``mmtpu_torch.ops``,
-   ``mmtpu_torch.analysis``) on the card against the CPU at MOSI width.
+   ``mmtpu_torch.analysis``) on the card against the CPU at MOSI width;
+17. multi-device on the one card: K1 against its plain versions at the
+   shards' shapes (``MESH_SHARD_SHAPES``); worker processes under
+   ``torchrun`` (this script with ``--mesh-worker``), CUDA ranks sharing
+   card 0 over gloo: four run phase 5's e2e run through
+   ``run_experiment(mesh=(2, 2))`` with its inference fits, two run phase
+   4's training fit through ``fit_latents_mesh`` on (2, 1) with batch norm
+   (at lr 1e-5) and on (1, 2), each held to the same finite fit on one device (loss rtol 2e-4 /
+   atol 1e-5, embeddings and decoder rtol 2e-3 / atol 2e-5) with K1 once
+   per step of each kind on every rank, then ``run_sweep_multihost`` over
+   eight SGD grid configs cut to 1-2 epochs with the fused decoder update,
+   held to ``run_sweep`` in this process (rtol 2e-4); and ``torchrun
+   --nproc_per_node 1`` of ``mmtpu_torch.run ... --mesh data,vocab`` over
+   NCCL, held to phase 4's run; each part's wall seconds, printed as N ranks
+   sharing one card, not a scaling number;
+18. ``mmtpu_torch.run --profile DIR`` in a fresh process: its trace names
+   K1's kernels as often as the run launched them; ``make_configs`` writes
+   the 512 configs of ``config.make_grid``.
 
 Phase 3 also holds K2 with the config axis (``K2_BATCHED_SHAPES``, per-config
 lr, bias corrections and flag, one config at flag 0) to its plain version and
 times it at the fused chunk's shape, beside 32 2-D calls, one per config slice
-of the same inputs, timed as one burst.  Phases 8-16 run inside the temporary
+of the same inputs, timed as one burst.  Phases 8-18 run inside the temporary
 directory of phases 4-6, before phase 7.  Around each path of phases 4-6 and
-8-15 the kernel launch counts are set to 0 just before and read just after
-(phase 12's in its own process).  The line before the last is the kernels'
+8-18 the kernel launch counts are set to 0 just before and read just after
+(phases 12, 17 and 18 in the processes that run them).  The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, the script exits
 non-zero and prints no result.
@@ -1584,6 +1601,453 @@ def check_numeric_ops(torch, prep) -> dict:
     return {"max_abs": errs, "closest_same_share": same}
 
 
+# phase 17: the mesh fits and the multi-process sweep on the one card.  K1 at
+# the shards' shapes: MOSI's 3016-row vocabulary over 2 and 4 vocab ranks, the
+# 64- and 512-row batches over 2 and 4 data ranks
+MESH_SHARD_SHAPES = [(32, 300, 1508), (16, 300, 754), (64, 300, 1508), (256, 300, 1508)]
+# the mesh fits against the single-device fits (tests/test_parallel.py)
+MESH_LOSS_RTOL, MESH_LOSS_ATOL = 2e-4, 1e-5
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2e-3, 2e-5
+# the multi-process sweep against the single-process sweep: SGD configs at
+# layer norm and lr 1e-4 (sgd_sweep_configs' reason), whose results move
+# only by float order; Adam's lr x sign(g) first step would move a few
+# coordinates by lr (phase 11)
+MULTIHOST_RTOL = 2e-4
+MESH_SHARED = "N ranks sharing one card, not a scaling number"
+WORKER_TIMEOUT_S = 600
+
+
+def _torchrun(n: int, script: str, args: list, tmp: str, tag: str) -> dict:
+    """Start ``torchrun --standalone`` with ``n`` processes of ``script``
+    (its own free port), its output into ``<tmp>/<tag>.log``; a thread
+    notes when it ends.  :func:`_wait_all` collects it."""
+    import threading
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(n), script, *args]
+    job = {"log": os.path.join(tmp, f"{tag}.log"), "t0": time.perf_counter()}
+    job["out"] = open(job["log"], "w")
+    # a session of its own, so that _stop ends torchrun's workers with it
+    job["proc"] = subprocess.Popen(cmd, cwd=tmp, env=dict(os.environ, PYTHONPATH=ROOT),
+                                   stdout=job["out"], stderr=subprocess.STDOUT, text=True,
+                                   start_new_session=True)
+
+    def note_end():
+        job["proc"].wait()
+        job["end"] = time.perf_counter()
+
+    threading.Thread(target=note_end, daemon=True).start()
+    return job
+
+
+def _stop(jobs: dict) -> None:
+    """Kill every process of the jobs that still runs, and close their logs."""
+    import signal
+
+    for job in jobs.values():
+        if job["proc"].poll() is None:
+            os.killpg(job["proc"].pid, signal.SIGKILL)
+            job["proc"].wait()
+        job["out"].close()
+
+
+def _wait_all(jobs: dict) -> dict:
+    """Wait for :func:`_torchrun` jobs, each at most ``WORKER_TIMEOUT_S``
+    from its start; raise with a failed job's log end.  Returns ``{tag:
+    (wall seconds from its start to its end, log text)}``; every process
+    has ended on return."""
+    try:
+        for tag, job in jobs.items():
+            left = WORKER_TIMEOUT_S - (time.perf_counter() - job["t0"])
+            try:
+                job["proc"].wait(timeout=max(left, 0.1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{tag} did not end within {WORKER_TIMEOUT_S} s") from None
+    finally:
+        _stop(jobs)
+    walls = {}
+    for tag, job in jobs.items():
+        with open(job["log"]) as f:
+            text = f.read()
+        if job["proc"].returncode != 0:
+            raise AssertionError(f"{tag} exited {job['proc'].returncode}:\n{text[-4000:]}")
+        while "end" not in job:  # the noting thread runs on after wait() returns
+            time.sleep(0.01)
+        walls[tag] = (job["end"] - job["t0"], text)
+    return walls
+
+
+def _latent_inputs(torch, cfg: dict, data_dir: str, dev) -> tuple:
+    """The non-e2e training fit's inputs of ``run_experiment`` for ``cfg``
+    (``Draws(seed)``: the decoder, then the permutations) on ``dev``."""
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.convert import to_torch
+    from mmtpu_torch.runner import Draws, build_hp, prepare
+    from mmtpu_torch.train.latents import LatentFitSpec, train_view
+    from mmtpu_torch.tree import tree_map
+
+    ecfg = ExperimentConfig.from_dict(cfg)
+    prep = prepare(ecfg, data_dir)
+    draws = Draws(ecfg.seed)
+    dec = tree_map(lambda t: t.to(dev), draws.init_decoder(
+        prep.embed_dim, prep.audio_dim, prep.visual_dim, ecfg.unimodal, prep.text_gauss_dim))
+    perms = draws.train_permutations(prep.sif_init["train"].shape[0], ecfg.n_epochs)
+    spec = LatentFitSpec(n_epochs_max=ecfg.n_epochs, batch_size=ecfg.batch_size,
+                         train_decoder=True, unimodal=False, opt_kind=ecfg.optimizer)
+    return (to_torch(prep.sif_init["train"], dev), dec,
+            to_torch(train_view(prep.splits["train"]), dev),
+            to_torch(prep.vocab_embeddings, dev), build_hp(ecfg, dev), spec, perms)
+
+
+def mesh_bn_config() -> dict:
+    """Phase 4's config with batch norm at lr 1e-5, for the batch-sharded
+    fit: at lr 1e-4 SGD with batch norm diverges at MOSI width in its
+    second epoch, on one device as on the mesh (on the CPU too)."""
+    return dict(smoke_config(False), norm="batch_norm", lr=1e-5)
+
+
+def multihost_configs() -> list:
+    """Phase 17's sweep: four configs each of the grid's SGD / 100- and
+    200-epoch buckets, epochs cut 100 -> 1 and 200 -> 2, sentiment epochs
+    400 -> ``SWEEP_SENTIMENT_EPOCHS``, at layer norm and lr 1e-4."""
+    from mmtpu_torch.config import make_grid
+
+    out, take = [], {100: 4, 200: 4}
+    for c in make_grid():
+        if c["optimizer"] == "sgd" and take.get(c["n_epochs"], 0) > 0:
+            take[c["n_epochs"]] -= 1
+            out.append(dict(c, n_epochs=c["n_epochs"] // 100, norm="layer_norm", lr=1e-4,
+                            n_sentiment_epochs=SWEEP_SENTIMENT_EPOCHS))
+    return out
+
+
+def _multihost_prep(data_dir: str, configs: list):
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs} - {0}))
+    return prepare_device_data(load_dataset("mosi", data_dir=data_dir), pos_mode="shared",
+                               pos_dims=dims)
+
+
+def _sweep_columns(res) -> dict:
+    return {"final_train_loss": res.final_train_loss, "config_nums": res.config_nums,
+            **{f"m:{k}": v for k, v in res.metrics.items()}}
+
+
+def mesh_worker(argv: list) -> int:
+    """One rank of phase 17's worlds (``chip_smoke.py --mesh-worker JOB TMP``
+    under torchrun): CUDA ranks sharing card 0 over gloo.  ``e2e``: the
+    e2e run of phase 5 through ``run_experiment(mesh=(2, 2))``; ``fits``:
+    the non-e2e training fit through ``fit_latents_mesh`` on (2, 1)
+    (``mesh_bn_config``) and (1, 2) (phase 4's config), then
+    ``run_sweep_multihost`` over ``multihost_configs`` with the fused
+    decoder update.  Each rank writes
+    ``<job>_rank<r>.json`` (its kernel launches, seconds, backend and
+    device); rank 0 also ``<job>.pt`` (the results)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import mmtpu_torch.kernels.angular as K
+    import mmtpu_torch.kernels.decoder_update as T
+    from mmtpu_torch.convert import to_numpy
+    from mmtpu_torch.parallel import fit as pfit
+    from mmtpu_torch.parallel.mesh import init_world
+
+    job, tmp = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_world("cuda:0", "gloo")  # the ranks share the one card
+    rank = dist.get_rank()
+    data_dir = os.path.join(tmp, "data")
+    info = {"backend": dist.get_backend(), "device": str(dev), "world": dist.get_world_size()}
+    keep = {}
+
+    def part(name, fn):
+        _reset_launches(K, T)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        info[name] = {"s": time.perf_counter() - t0, "launches": _read_launches(K, T)}
+        keep[name] = out
+
+    if job == "e2e":
+        import mmtpu_torch.runner as runner
+        from mmtpu_torch.config import ExperimentConfig
+
+        cfg = ExperimentConfig.from_json(os.path.join(tmp, "config_e2e.json"))
+        prep = runner.prepare(cfg, data_dir)
+        fits, orig = [], runner.fit_e2e_mesh
+
+        def recording(*args, **kw):  # the training fit's result; the run is unchanged
+            fits.append(orig(*args, **kw))
+            return fits[-1]
+
+        runner.fit_e2e_mesh = recording
+        part("e2e_2x2", lambda: runner.run_experiment(
+            cfg, prep=prep, out_root=os.path.join(tmp, "out_mesh"),
+            mesh=pfit.make_fit_mesh(2, 2), device=dev, verbose=False)["final_train_loss"])
+        keep["e2e_2x2"] = {"final_loss": keep["e2e_2x2"], "fit": [to_numpy(x) for x in fits[0]]}
+    else:
+        from mmtpu_torch.parallel.multihost import run_sweep_multihost
+
+        for name, shape, cfg in (("latents_2x1", (2, 1), mesh_bn_config()),
+                                 ("latents_1x2", (1, 2), smoke_config(False))):
+            emb0, dec, data, vocab, hp, spec, perms = _latent_inputs(torch, cfg, data_dir, dev)
+            part(name, lambda: [to_numpy(x) for x in pfit.fit_latents_mesh(
+                pfit.make_fit_mesh(*shape), emb0, dec, data, vocab, hp, spec, perms=perms)])
+        configs = multihost_configs()
+        prep = _multihost_prep(data_dir, configs)
+        part("sweep_multihost", lambda: _sweep_columns(run_sweep_multihost(
+            configs, prep, verbose=False, batch_size=64, fused_dec_update=True, device=dev)))
+    with open(os.path.join(tmp, f"{job}_rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    if rank == 0:
+        torch.save(keep, os.path.join(tmp, f"{job}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+# runs `python -m mmtpu_torch.run <args>` and prints the kernel launch counts
+# of that process on its last line (phase 17's NCCL run under torchrun and
+# phase 18's profiled run)
+_RUN_CLI = """
+import json, runpy, sys
+import mmtpu_torch.kernels.angular as K
+sys.argv = ["mmtpu_torch.run"] + sys.argv[1:]
+try:
+    runpy.run_module("mmtpu_torch.run", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"rc": rc, "k1_fwd": K.LAUNCHES["fwd"], "k1_bwd": K.LAUNCHES["bwd"]}))
+sys.exit(rc or 0)
+"""
+
+
+def _write_run_cli(tmp: str) -> str:
+    path = os.path.join(tmp, "run_cli.py")
+    with open(path, "w") as f:
+        f.write(_RUN_CLI)
+    return path
+
+
+def _close(got, want, rtol, atol) -> float:
+    """Raise unless ``got`` is within ``rtol`` / ``atol`` of ``want`` (NaN
+    equal to NaN); returns the largest absolute difference."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    both = np.isfinite(got) & np.isfinite(want)
+    return float(np.abs(got - want)[both].max()) if both.any() else 0.0
+
+
+def _fit_diffs(got: list, want, loss_at: int) -> dict:
+    """A mesh fit's (numpy) leaves against a single-device fit's, both
+    finite: the losses at ``loss_at`` at the loss tolerance, the embeddings
+    and the decoder at the parameter tolerance; returns the final loss and
+    the largest differences."""
+    import numpy as np
+
+    from mmtpu_torch.convert import to_numpy
+    from mmtpu_torch.tree import tree_leaves
+
+    want = [to_numpy(w) for w in want]
+    for fit in (got, want):
+        if not all(np.isfinite(x).all() for x in [fit[0], fit[loss_at]] + tree_leaves(fit[1])):
+            raise AssertionError("a mesh fit or its single-device fit is not finite")
+    out = {"final_loss": float(want[loss_at][-1]),
+           "loss": _close(got[loss_at], want[loss_at], MESH_LOSS_RTOL, MESH_LOSS_ATOL),
+           "embed": _close(got[0], want[0], MESH_PARAM_RTOL, MESH_PARAM_ATOL)}
+    out["decoder"] = max(_close(a, b, MESH_PARAM_RTOL, MESH_PARAM_ATOL)
+                         for a, b in zip(tree_leaves(got[1]), tree_leaves(want[1])))
+    return out
+
+
+def _rank_infos(tmp: str, job: str, n: int) -> list:
+    out = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"{job}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    for info in out:
+        if info["backend"] != "gloo" or info["device"] != "cuda:0":
+            raise AssertionError(f"{job}: a rank ran on {info['device']} over "
+                                 f"{info['backend']}, not cuda:0 over gloo")
+    return out
+
+
+def run_mesh(torch, K, T, tmp: str, non_e2e: dict, e2e: dict) -> dict:
+    """Phase 17: (a) K1 at the shards' shapes against its plain versions;
+    (b) four ranks sharing the card over gloo run phase 5's e2e run through
+    ``run_experiment(mesh=(2, 2))``, two run phase 4's training fit through
+    ``fit_latents_mesh`` on (2, 1) with batch norm (``mesh_bn_config``) and on
+    (1, 2), each held to the same fit on one device (phase 5's, a batch-norm
+    fit here, and phase 4's), all finite, with K1 once per step on every rank; (c) ``torchrun
+    --nproc_per_node 1 -m mmtpu_torch.run ... --mesh data,vocab`` over NCCL,
+    held to phase 4's run; (d) the two ranks' ``run_sweep_multihost`` over
+    ``multihost_configs`` with the fused decoder update, held to
+    ``run_sweep`` in this process.  The worlds run side by side with this
+    process's references; each part's wall seconds are printed as such."""
+    import numpy as np
+
+    from mmtpu_torch.sweep.runner import run_sweep
+    from mmtpu_torch.train.latents import fit_latents
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(17)
+    fwd_err = bwd_err = 0.0
+    for b, d, v in MESH_SHARD_SHAPES:
+        errs = _check_k1(torch, K, *_k1_case(torch, dev, gen, b, d, v))
+        fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
+
+    me = os.path.join(ROOT, "chip_smoke.py")
+    run_cli = _write_run_cli(tmp)
+    cfg_path = os.path.join(tmp, "config_non-e2e.json")
+    jobs = {"e2e": _torchrun(4, me, ["--mesh-worker", "e2e", tmp], tmp, "mesh_e2e"),
+            "fits": _torchrun(2, me, ["--mesh-worker", "fits", tmp], tmp, "mesh_fits"),
+            "nccl": _torchrun(1, run_cli, [
+                cfg_path, "mosi", "--e2e", "n", "--device", "cuda", "--mesh", "data,vocab",
+                "--out_root", os.path.join(tmp, "out_nccl"), "--data_dir",
+                os.path.join(tmp, "data")], tmp, "mesh_nccl")}
+
+    try:  # the single-device references these worlds do not share with phases 4-5
+        emb0, dec, data, vocab, hp, spec, perms = _latent_inputs(
+            torch, mesh_bn_config(), os.path.join(tmp, "data"), dev)
+        bn_ref = fit_latents(emb0, dec, data, vocab, hp, spec, perms=perms)
+        configs = multihost_configs()
+        t0 = time.perf_counter()
+        sweep_ref = run_sweep(configs, _multihost_prep(os.path.join(tmp, "data"), configs),
+                              batch_size=64, fused_dec_update=True, device=dev, verbose=False)
+        torch.cuda.synchronize(dev)
+        sweep_ref_s = time.perf_counter() - t0
+        walls = _wait_all(jobs)
+    finally:
+        _stop(jobs)
+    e2e_info, fit_info = _rank_infos(tmp, "e2e", 4), _rank_infos(tmp, "fits", 2)
+    got_e2e = torch.load(os.path.join(tmp, "e2e.pt"), weights_only=False)
+    got_fits = torch.load(os.path.join(tmp, "fits.pt"), weights_only=False)
+
+    steps = N_EPOCHS * STEPS_PER_EPOCH
+    infer = N_EPOCHS * (-(-229 // 512) + -(-686 // 512))
+    k1 = {"e2e_2x2": [i["e2e_2x2"]["launches"] for i in e2e_info],
+          **{n: [i[n]["launches"] for i in fit_info] for n in ("latents_2x1", "latents_1x2")}}
+    want_k1 = {"e2e_2x2": steps + infer, "latents_2x1": steps, "latents_1x2": steps}
+    for name, per_rank in k1.items():
+        for launched in per_rank:
+            if launched["k1_fwd"] != want_k1[name] or launched["k1_bwd"] != want_k1[name]:
+                raise AssertionError(f"{name}: a rank launched K1 {launched}, expected "
+                                     f"{want_k1[name]} of each kind (one per step)")
+
+    diffs = {"e2e_2x2": _fit_diffs(got_e2e["e2e_2x2"]["fit"], e2e["train_fit"], 3),
+             "latents_2x1": _fit_diffs(got_fits["latents_2x1"], bn_ref, 2),
+             "latents_1x2": _fit_diffs(got_fits["latents_1x2"], non_e2e["train_fit"], 2)}
+    mesh_post = np.load(os.path.join(tmp, "out_mesh", "mmtpu", "config_0_run_0", "post",
+                                     "embed.npy"))
+    diffs["e2e_2x2"]["post_embed"] = _close(mesh_post, e2e["post"], MESH_PARAM_RTOL,
+                                            MESH_PARAM_ATOL)
+    diffs["e2e_2x2"]["run_final_loss"] = _close(got_e2e["e2e_2x2"]["final_loss"],
+                                                e2e["final_loss"], MESH_LOSS_RTOL, MESH_LOSS_ATOL)
+
+    nccl_s, nccl_log = walls["nccl"]
+    nccl_launches = json.loads(nccl_log.strip().splitlines()[-1])
+    if "backend nccl" not in nccl_log:
+        raise AssertionError("the torchrun --mesh run did not report an NCCL group")
+    nccl_post = np.load(os.path.join(tmp, "out_nccl", "mmtpu", "config_0_run_0", "post",
+                                     "embed.npy"))
+    diffs["cli_nccl_1x1"] = {"post_embed": _close(nccl_post, non_e2e["post"], MESH_PARAM_RTOL,
+                                                  MESH_PARAM_ATOL)}
+    if nccl_launches["k1_fwd"] != non_e2e["launches"]["k1_fwd"]:
+        raise AssertionError(f"the NCCL run launched {nccl_launches}, phase 4 "
+                             f"{non_e2e['launches']}")
+
+    got_sweep, want_sweep = got_fits["sweep_multihost"], _sweep_columns(sweep_ref)
+    if got_sweep["config_nums"].tolist() != want_sweep["config_nums"].tolist():
+        raise AssertionError("the multi-process sweep's configs are not the sweep's")
+    diffs["sweep_multihost"] = {k: _close(got_sweep[k], v, MULTIHOST_RTOL, 0.0)
+                                for k, v in want_sweep.items() if k != "config_nums"}
+    sweep_launches = [i["sweep_multihost"]["launches"] for i in fit_info]
+    shards = [configs[r::2] for r in range(2)]
+    for r, launched in enumerate(sweep_launches):
+        epochs = sorted({c["n_epochs"] for c in shards[r]})  # one chunk per bucket
+        want = {"k1_fwd": sum(epochs) * (STEPS_PER_EPOCH + 1 + 2),
+                "k2_sgd": sum(2 * ne * STEPS_PER_EPOCH for ne in epochs)}
+        if any(launched[k] != v for k, v in want.items()):
+            raise AssertionError(f"multi-process sweep rank {r} launched {launched}, "
+                                 f"expected {want}")
+    finite = int(np.isfinite(want_sweep["final_train_loss"]).sum())
+
+    seconds = {"e2e_2x2 (4 ranks)": [round(i["e2e_2x2"]["s"], 3) for i in e2e_info],
+               "latents_2x1 (2 ranks)": [round(i["latents_2x1"]["s"], 3) for i in fit_info],
+               "latents_1x2 (2 ranks)": [round(i["latents_1x2"]["s"], 3) for i in fit_info],
+               "sweep_multihost (2 ranks)": [round(i["sweep_multihost"]["s"], 3)
+                                             for i in fit_info],
+               "sweep one process": round(sweep_ref_s, 3),
+               "each world's wall": {t: round(w[0], 1) for t, w in walls.items()}}
+    log(f"[mesh] K1 at the shards' shapes {MESH_SHARD_SHAPES}: max abs fwd {fwd_err:.3e}, "
+        f"bwd {bwd_err:.3e}")
+    log(f"[mesh] K1 launches per rank: {k1}; NCCL run (1 rank, torchrun) {nccl_launches}; "
+        f"multi-process sweep per rank {sweep_launches}")
+    log(f"[mesh] against one device, largest differences: {diffs}; sweep configs finite "
+        f"{finite}/{len(configs)}")
+    log(f"[mesh] wall seconds ({MESH_SHARED}): {seconds}")
+    return {"k1_fwd_err": fwd_err, "k1_bwd_err": bwd_err, "k1_launches": k1,
+            "k1_launches_nccl": nccl_launches, "sweep_launches": sweep_launches,
+            "diffs": diffs, "seconds": seconds, "finite_sweep_configs": finite}
+
+
+def run_aux(tmp: str) -> dict:
+    """Phase 18: ``mmtpu_torch.run`` with ``--profile DIR`` in a fresh process
+    (a process's second profiler session records no device event) on phase
+    4's config cut to one epoch: its trace names K1's kernels; and
+    ``python -m mmtpu_torch.make_configs``'s 512 files equal
+    ``config.make_grid``."""
+    from mmtpu_torch import make_configs
+    from mmtpu_torch.config import make_grid
+
+    cfg = dict(smoke_config(False), n_epochs=1, n_sentiment_epochs=1)
+    cfg_path = os.path.join(tmp, "config_profile.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, _write_run_cli(tmp), cfg_path, "mosi",
+                           "--e2e", "n", "--device", "cuda", "--no_artifacts", "--profile",
+                           trace_dir, "--data_dir", os.path.join(tmp, "data")], cwd=tmp,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                          text=True, timeout=WORKER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the --profile run exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1 = {kind: sum(f"angular_{kind}_kernel" in n for n in kernels) for kind in ("fwd", "bwd")}
+    log(f"[aux] --profile run: {len(kernels)} device kernels in the trace, K1 {k1} against "
+        f"{launches} launched; wall {wall:.1f} s")
+    if k1["fwd"] != launches["k1_fwd"] or k1["bwd"] != launches["k1_bwd"] or not k1["fwd"]:
+        raise AssertionError(f"the trace names K1 {k1} times, the run launched {launches}")
+
+    folder = os.path.join(tmp, "configs")
+    if make_configs.main([folder]) != 0:
+        raise AssertionError("make_configs failed")
+    written = []
+    for i in range(512):
+        with open(os.path.join(folder, f"config_{i}.json")) as f:
+            written.append(json.load(f))
+    same = written == make_grid()
+    log(f"[aux] make_configs wrote {len(os.listdir(folder))} files; the 512 configs equal "
+        f"make_grid(): {same}")
+    if not same:
+        raise AssertionError("make_configs' files differ from config.make_grid()")
+    return {"trace_kernels": len(kernels), "trace_k1": k1, "launches": launches,
+            "wall_s": wall}
+
+
 def check_small_agreement(torch) -> None:
     """Phase 7: small configs on the GPU (kernels) and on the CPU (plain
     versions) with the same draws must agree."""
@@ -1652,6 +2116,8 @@ def check_small_agreement(torch) -> None:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--mesh-worker"]:  # one rank of phase 17's worlds
+        return mesh_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1695,6 +2161,8 @@ def main() -> int:
         warm = run_warm_chunk(torch, K, T, tmp, sweep)
         alternating = run_alternating(torch, K, T, tmp)
         ops = check_numeric_ops(torch, alternating.pop("prep"))
+        mesh = run_mesh(torch, K, T, tmp, non_e2e, e2e)
+        aux = run_aux(tmp)
     check_small_agreement(torch)
 
     t, kb = k1["times"], k1["bounds"]
@@ -1722,6 +2190,11 @@ def main() -> int:
          "launches_sweep_warm_chunk": warm["launches"][f"k1_{kind}"],
          "launches_alternating": alternating["launches"][f"k1_{kind}"],
          **({"max_abs_err_alternating_rows": alternating["k1_fwd_err"]} if kind == "fwd" else {}),
+         "launches_mesh": {**{name: [r[f"k1_{kind}"] for r in ranks]
+                              for name, ranks in mesh["k1_launches"].items()},
+                           "cli_nccl_1x1": mesh["k1_launches_nccl"][f"k1_{kind}"]},
+         "max_abs_err_mesh_shards": mesh[f"k1_{kind}_err"],
+         "launches_profiled_run": aux["launches"][f"k1_{kind}"],
          "max_abs_err_sweep_rows": sweep["k1"][f"{kind}_err"],
          **{f"{key}_b{b}": val for b in st for key, val in (
              ("ms", st[b][kind]), ("plain_ms", st[b][f"{kind}_plain"]),
@@ -1742,6 +2215,7 @@ def main() -> int:
          "bound_ms_b512": k2["bounds"][kind][512][0],
          "bound_by_b512": k2["bounds"][kind][512][1],
          "launches_sweep_fused": fused_sweep[kind]["launches"][f"k2_{kind}"],
+         "launches_sweep_multihost": [r[f"k2_{kind}"] for r in mesh["sweep_launches"]],
          "ms_k32": k2["times"][kind]["k32"]["kernel"],
          "plain_ms_k32": k2["times"][kind]["k32"]["plain"],
          "ms_2d_x32": k2["times"][kind]["k32"]["sliced"],
@@ -1764,7 +2238,9 @@ def main() -> int:
                   "serving": {k: v for k, v in serving.items() if k != "launches"},
                   "sweep_warm_chunk": {k: v for k, v in warm.items() if k != "launches"},
                   "alternating": {k: v for k, v in alternating.items() if k != "launches"},
-                  "numeric_ops": ops},
+                  "numeric_ops": ops,
+                  "mesh": {k: mesh[k] for k in ("diffs", "seconds", "finite_sweep_configs")},
+                  "aux": {k: aux[k] for k in ("trace_kernels", "trace_k1", "wall_s")}},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,17 +21,16 @@ closed form and serving (:mod:`mmtpu_torch.ops.closed_form`,
 models and the alternating driver (:mod:`mmtpu_torch.models.legacy`,
 :mod:`mmtpu_torch.train.alternating`); the SIF and positional-encoding ops
 of mmtpu's ``ops`` API (:mod:`mmtpu_torch.ops`) and
-:mod:`mmtpu_torch.analysis`.  What is not ported yet (multi-device, the aux
-CLI and utils) raises :func:`not_ported`.
+:mod:`mmtpu_torch.analysis`; multi-device runs over ``torch.distributed``,
+one process per rank (:mod:`mmtpu_torch.parallel`: meshes, fits sharded
+over batch and vocabulary, the sweep's config axis over ranks and the
+multi-process sweep, behind ``--mesh`` and ``--multihost``); and the aux
+modules (:mod:`mmtpu_torch.utils`, ``--profile``,
+:mod:`mmtpu_torch.make_configs`).  mmtpu's XLA compilation cache has no
+counterpart: the kernels build once per source hash.
 """
 
 __version__ = "0.1.0"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a part of mmtpu that the port does not have yet;
-    ``item`` names its entry in ROADMAP.md."""
-    return NotImplementedError(f"{what} is not ported to mmtpu_torch yet (ROADMAP.md: {item})")
 
 
 def __getattr__(name):

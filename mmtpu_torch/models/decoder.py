@@ -103,7 +103,7 @@ def init_decoder(gen: torch.Generator, embed_dim: int, audio_dim: int, visual_di
 
 
 def apply_norm(x: torch.Tensor, norm_params: Mapping[str, torch.Tensor], norm_code,
-               batch_weights: torch.Tensor | None = None) -> torch.Tensor:
+               batch_weights: torch.Tensor | None = None, row_sum=None) -> torch.Tensor:
     """Branchless none / LayerNorm / train-mode BatchNorm on ``(B, D)``, or
     on ``(K, B, D)`` with per-config parameters.
 
@@ -113,6 +113,11 @@ def apply_norm(x: torch.Tensor, norm_params: Mapping[str, torch.Tensor], norm_co
     row-validity weights: padded rows are left out of the batch statistics.
     ``norm_code`` may be an int, a 0-d tensor or a ``(K,)`` tensor; all three
     results are computed and one is selected per config.
+
+    ``row_sum`` (with ``batch_weights``) sums the statistics' partial row
+    sums over the ranks that hold the rest of the batch (the mesh fits'
+    :meth:`mmtpu_torch.parallel.collectives.BatchShard.row_sum`), so that
+    batch norm sees the global batch.
     """
     scale, bias = rowwise(norm_params["scale"]), rowwise(norm_params["bias"])
     ln_mean = torch.mean(x, dim=-1, keepdim=True)
@@ -123,20 +128,26 @@ def apply_norm(x: torch.Tensor, norm_params: Mapping[str, torch.Tensor], norm_co
         bn_var = torch.var(x, dim=-2, keepdim=True, correction=0)
     else:
         w = batch_weights[..., None]
-        denom = torch.clamp_min(torch.sum(w, dim=-2, keepdim=True), 1.0)
-        bn_mean = torch.sum(x * w, dim=-2, keepdim=True) / denom
-        bn_var = torch.sum(torch.square(x - bn_mean) * w, dim=-2, keepdim=True) / denom
+        n_w = torch.sum(w, dim=-2, keepdim=True)
+        s_xw = torch.sum(x * w, dim=-2, keepdim=True)
+        if row_sum is not None:  # one collective for the count and the sums
+            both = row_sum(torch.cat([n_w.expand(*s_xw.shape[:-1], 1), s_xw], dim=-1))
+            n_w, s_xw = both[..., :1], both[..., 1:]
+        denom = torch.clamp_min(n_w, 1.0)
+        bn_mean = s_xw / denom
+        sq = torch.sum(torch.square(x - bn_mean) * w, dim=-2, keepdim=True)
+        bn_var = (sq if row_sum is None else row_sum(sq)) / denom
     bn = (x - bn_mean) / torch.sqrt(bn_var + _NORM_EPS) * scale + bias
     code = per_config(torch.as_tensor(norm_code, device=x.device), x.ndim)
     return torch.where(code == NORM_LAYER, ln, torch.where(code == NORM_BATCH, bn, x))
 
 
 def apply_decoder(params: Mapping, latents: torch.Tensor, norm_code=NORM_NONE,
-                  batch_weights: torch.Tensor | None = None) -> dict:
+                  batch_weights: torch.Tensor | None = None, row_sum=None) -> dict:
     """Latent -> ``{head: {"mu": (B, F_h), "sigma": (B, F_h)}}`` with
     ``mu = x @ w_mu + b_mu`` and ``sigma = exp(x @ w_log_sigma + b_log_sigma)``
     (``(K, B, F_h)`` under a config axis)."""
-    x = apply_norm(latents, params["norm"], norm_code, batch_weights)
+    x = apply_norm(latents, params["norm"], norm_code, batch_weights, row_sum)
     out = {}
     for name, h in params["heads"].items():
         mu = x @ h["w_mu"] + rowwise(h["b_mu"])
@@ -187,10 +198,10 @@ def unstack_decoder(stacked: Mapping, head_widths) -> dict:
 
 
 def apply_decoder_stacked(params: Mapping, latents: torch.Tensor, norm_code=NORM_NONE,
-                          batch_weights: torch.Tensor | None = None):
+                          batch_weights: torch.Tensor | None = None, row_sum=None):
     """Stacked-layout forward: ``(mu_all, sigma_all)``, each ``(B, sum F_h)``
     (pad columns included); callers slice each head at its offset."""
-    x = apply_norm(latents, params["norm"], norm_code, batch_weights)
+    x = apply_norm(latents, params["norm"], norm_code, batch_weights, row_sum)
     hs = params["heads"]
     mu = x @ hs["w_mu"] + rowwise(hs["b_mu"])
     sigma = torch.exp(x @ hs["w_log_sigma"] + rowwise(hs["b_log_sigma"]))

@@ -101,12 +101,16 @@ def word_logprob_dot_prod(
     sent_embeddings: torch.Tensor,
     mask: torch.Tensor,
     a: float = 1e-3,
+    partition_fn=None,
 ) -> torch.Tensor:
     """Dot-product (softmax-form) word log-likelihood per utterance, ``(B,)``
-    (:func:`mmtpu.ops.wordprob.word_logprob_dot_prod`)."""
+    (:func:`mmtpu.ops.wordprob.word_logprob_dot_prod`); ``partition_fn``
+    overrides the computation of ``Z = sum_v exp(c . v)``."""
     mask = _token_mask(mask, word_weights)
-    logits = latents @ vocab_embeddings.T
-    z = torch.sum(torch.exp(logits), dim=-1, keepdim=True)  # (B, 1)
+    if partition_fn is None:
+        z = torch.sum(torch.exp(latents @ vocab_embeddings.T), dim=-1, keepdim=True)  # (B, 1)
+    else:
+        z = partition_fn(latents, vocab_embeddings)
     alpha = 1.0 / (z * a + 1.0)
     unigram = alpha * word_weights
     dot = torch.einsum("...ld,...d->...l", sent_embeddings, latents)

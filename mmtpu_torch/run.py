@@ -9,7 +9,10 @@ Usage::
         [--emotion E] [--optimizer {sgd,adam}] [--norm {layer_norm,batch_norm}]
         [--likelihood_weight F] [--data_dir DIR] [--out_root DIR] [--parity]
         [--seed N] [--no_artifacts] [--lazy_adam] [--validation_curve]
-        [--resume_dir DIR] [--time_test]
+        [--resume_dir DIR] [--time_test] [--mesh [AXES]] [--backend {gloo,nccl}]
+        [--profile [DIR]]
+
+    torchrun --nproc_per_node N -m mmtpu_torch.run <config.json> mosi --mesh data,vocab
 
 ``--device`` (default ``cuda``) picks the device; asking for CUDA where
 there is none raises, nothing falls back to the CPU.  Accepted for
@@ -25,8 +28,19 @@ valid split every 80 epochs and after the last) as ``embed_valid_loss``;
 ``--resume_dir DIR`` checkpoints the non-e2e training fit in epoch segments
 under ``DIR`` (``DIR_run<r>`` for each run when ``n_runs > 1``) and resumes
 from it.  ``--time_test`` times the closed-form estimate of the test split
-from the trained decoder and prints ``time taken:``.  Flags of parts not
-ported yet (``--mesh``, ``--profile``) raise ``NotImplementedError``.
+from the trained decoder and prints ``time taken:``.
+
+``--mesh AXES`` (``data``, ``vocab``, ``data,vocab`` or sizes such as
+``data=2,vocab=2``; default ``data,vocab``) spans the run over the ranks of
+a ``torch.distributed`` world, one process per rank: ``torchrun``'s world
+where its environment is set, else a world of this one process (its
+collectives still run).  A rank's device is ``cuda:LOCAL_RANK`` for
+``--device cuda``; ``--backend`` overrides the device's backend (NCCL for
+CUDA, gloo for the CPU): ranks that share one card need
+``--device cuda:0 --backend gloo``.  The first rank alone writes the
+artifacts and prints.  ``--profile DIR`` runs under ``torch.profiler`` and
+writes a Chrome trace into ``DIR``
+(:func:`mmtpu_torch.utils.profiling.trace`).
 """
 
 from __future__ import annotations
@@ -37,7 +51,6 @@ import sys
 
 import numpy as np
 
-from mmtpu_torch import not_ported
 from mmtpu_torch.config import ExperimentConfig
 
 
@@ -73,6 +86,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--precision", choices=["default", "highest"], help=argparse.SUPPRESS)
     parser.add_argument("--pallas", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--mesh", metavar="AXES", nargs="?", const="data,vocab")
+    parser.add_argument("--backend", choices=["gloo", "nccl"],
+                        help="process-group backend of --mesh (default: the device's)")
     parser.add_argument("--lazy_adam", action="store_true")
     parser.add_argument("--resume_dir", metavar="DIR")
     parser.add_argument("--seed", type=int, default=0)
@@ -81,17 +96,54 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def _parse_mesh(spec: str, backend=None):
+    """'data' | 'vocab' | 'data,vocab' | 'data=4,vocab=2' -> a
+    :func:`mmtpu_torch.parallel.fit.make_fit_mesh` ("data", "vocab") mesh
+    over the world's ranks (mmtpu's ``run.py:95-116``, over ranks in place
+    of devices)."""
+    import torch.distributed as dist
+
+    from mmtpu_torch.parallel.fit import make_fit_mesh
+
+    sizes = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, val = part.partition("=")
+        if name not in ("data", "vocab"):
+            raise ValueError(f"unknown mesh axis {name!r} (want data/vocab)")
+        sizes[name] = int(val) if val else None
+    n = dist.get_world_size()
+    n_b, n_v = sizes.get("data", 1), sizes.get("vocab", 1)
+    if "data" in sizes and "vocab" in sizes and n_b is None and n_v is None:
+        n_v = 2 if n % 2 == 0 and n > 1 else 1  # default split
+        n_b = n // n_v
+    return make_fit_mesh(n_b, n_v, backend)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    import contextlib
+
     import torch
+    import torch.distributed as dist
 
     from mmtpu_torch.runner import prepare, run_experiment
+    from mmtpu_torch.utils.profiling import trace
 
-    if args.profile:
-        raise not_ported("--profile", "queue 1, aux")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
+    mesh, own_world = None, False
+    if args.mesh:
+        from mmtpu_torch.parallel.mesh import init_world
+
+        own_world = not dist.is_initialized()
+        device = init_world(args.device, args.backend)
+        mesh = _parse_mesh(args.mesh, args.backend)
+    else:
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
+    say = print if mesh is None or mesh.is_main else (lambda *a, **k: None)
 
     overrides = dict(
         dataset=args.dataset,
@@ -113,32 +165,42 @@ def main(argv=None) -> int:
         seed=args.seed,
         use_pallas=args.pallas or None,
     )
-    cfg = ExperimentConfig.from_json(args.config_file, **overrides)
-    print("######################################")
-    print(f"Config: {cfg.config_num}")
-    print(json.dumps(cfg.to_dict(), indent=2))
+    try:
+        cfg = ExperimentConfig.from_json(args.config_file, **overrides)
+        say("######################################")
+        say(f"Config: {cfg.config_num}")
+        say(json.dumps(cfg.to_dict(), indent=2))
 
-    prep = prepare(cfg, args.data_dir)
-    if prep.synthetic:
-        print("[mmtpu_torch] real data blobs not found — using synthetic stand-ins")
-    for r in range(cfg.n_runs):
-        res = run_experiment(
-            cfg,
-            data_dir=args.data_dir,
-            out_root=args.out_root,
-            prep=prep,
-            run_idx=r,
-            save_artifacts=not args.no_artifacts,
-            time_test=args.time_test,
-            validation_curve=args.validation_curve,
-            mesh=args.mesh,
-            resume_dir=(f"{args.resume_dir}_run{r}" if args.resume_dir and cfg.n_runs > 1
-                        else args.resume_dir),
-            lazy_adam=args.lazy_adam,
-            device=device,
-        )
-        print(f"run {r}: train_time={res['train_time_s']:.2f}s "
-              f"final_loss={res['final_train_loss']:.3f}")
+        prep = prepare(cfg, args.data_dir)
+        if prep.synthetic:
+            say("[mmtpu_torch] real data blobs not found — using synthetic stand-ins")
+        if mesh is not None:
+            say(f"[mmtpu_torch] mesh {mesh.axis_sizes} over {mesh.ranks.size} rank(s), "
+                f"backend {dist.get_backend()}")
+        with trace(args.profile) if args.profile else contextlib.nullcontext():
+            for r in range(cfg.n_runs):
+                res = run_experiment(
+                    cfg,
+                    data_dir=args.data_dir,
+                    out_root=args.out_root,
+                    prep=prep,
+                    run_idx=r,
+                    save_artifacts=not args.no_artifacts,
+                    time_test=args.time_test,
+                    validation_curve=args.validation_curve,
+                    mesh=mesh,
+                    resume_dir=(f"{args.resume_dir}_run{r}" if args.resume_dir
+                                and cfg.n_runs > 1 else args.resume_dir),
+                    lazy_adam=args.lazy_adam,
+                    device=device,
+                )
+                say(f"run {r}: train_time={res['train_time_s']:.2f}s "
+                    f"final_loss={res['final_train_loss']:.3f}")
+        if args.profile:
+            say(f"[mmtpu_torch] profiler trace written to {args.profile}")
+    finally:
+        if own_world:  # the group this call started ends with it
+            dist.destroy_process_group()
     sys.stdout.flush()
     return 0
 

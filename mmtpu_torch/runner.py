@@ -12,6 +12,13 @@ init, the e2e sentiment init, the training fit's shuffles, the sentiment
 init and its shuffles.  The default draws from
 ``torch.Generator(seed + run_idx)``; the parity tests pass one that
 reproduces mmtpu's JAX key splits.
+
+With a ``mesh`` (:func:`mmtpu_torch.parallel.fit.make_fit_mesh`) the run
+spans the ranks of a ``torch.distributed`` world, one process each: the
+training fit and the inference fits split their batches' rows over "data"
+and the vocabulary over "vocab" (:mod:`mmtpu_torch.parallel.fit`); every
+rank computes the same results, and the mesh's first rank alone writes the
+artifacts and prints.
 """
 
 from __future__ import annotations
@@ -23,7 +30,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from mmtpu_torch import not_ported
 from mmtpu_torch.config import ExperimentConfig
 from mmtpu_torch.convert import to_numpy, to_torch
 from mmtpu_torch.data.pipeline import PreparedData, prepare_device_data
@@ -35,6 +41,7 @@ from mmtpu_torch.models.decoder import (MMB1_HEADS, MMB2_HEADS, NORM_CODES, asse
                                         init_decoder)
 from mmtpu_torch.models.sentiment import apply_sentiment, init_sentiment
 from mmtpu_torch.ops.closed_form import closed_form_latents
+from mmtpu_torch.parallel.fit import fit_e2e_mesh, fit_latents_mesh
 from mmtpu_torch.train.chunked import fit_latents_checkpointed
 from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
 from mmtpu_torch.train.latents import LatentFitSpec, fit_latents, train_view
@@ -231,12 +238,24 @@ def run_experiment(
     ``time_test=True`` times the closed-form estimate of the test split from
     the trained decoder (:func:`time_closed_form`) into
     ``results["closed_form"]``.
+
+    ``mesh`` (a ("data", "vocab") :class:`mmtpu_torch.parallel.mesh.Mesh`;
+    every rank calls with the same arguments and its own ``device``) runs
+    the training and inference fits sharded over it
+    (:func:`mmtpu_torch.parallel.fit.fit_latents_mesh`,
+    :func:`mmtpu_torch.parallel.fit.fit_e2e_mesh`).  As in mmtpu it takes
+    neither ``validation_curve`` nor ``resume_dir``.
     """
-    if mesh is not None:
-        raise not_ported("mesh", "queue 1, parallel")
+    if mesh is not None and validation_curve:
+        raise ValueError("--mesh does not support --validation_curve "
+                         "(the mesh fits are no-validation programs)")
     if resume_dir is not None and cfg.e2e:
         raise ValueError("--resume_dir supports non-e2e fits only "
                          "(pass --e2e n or set e2e: false in the config)")
+    if resume_dir is not None and mesh is not None:
+        raise ValueError("--resume_dir and --mesh are mutually exclusive")
+    if mesh is not None and not mesh.is_main:  # the first rank writes and prints
+        save_artifacts, verbose = False, False
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
@@ -279,10 +298,13 @@ def run_experiment(
         e2e_hp = dict(hp, train_heads=torch.tensor(float(not cfg.freeze_weights),
                                                    device=device))
         perms = draws.train_permutations(init["train"].shape[0], cfg.n_epochs)
-        out = fit_e2e(
-            init["train"], decoder, senti0, split["train"], labels, vocab, e2e_hp, espec,
-            senti_mask=None if semi_mask is None else to_torch(semi_mask, device), perms=perms,
-            validation=validation)
+        smask = None if semi_mask is None else to_torch(semi_mask, device)
+        if mesh is not None:
+            out = fit_e2e_mesh(mesh, init["train"], decoder, senti0, split["train"], labels,
+                               vocab, e2e_hp, espec, senti_mask=smask, perms=perms)
+        else:
+            out = fit_e2e(init["train"], decoder, senti0, split["train"], labels, vocab, e2e_hp,
+                          espec, senti_mask=smask, perms=perms, validation=validation)
         train_embed, decoder, _, train_losses = out[:4]
         valid_curve = out[4] if validation_curve else None
     else:
@@ -301,6 +323,9 @@ def run_experiment(
             train_embed, decoder, train_losses = fit_latents_checkpointed(
                 init["train"], decoder, split["train"], vocab, hp, spec,
                 checkpointer=Checkpointer(resume_dir), verbose=verbose, perms=perms)
+        elif mesh is not None:
+            train_embed, decoder, train_losses = fit_latents_mesh(
+                mesh, init["train"], decoder, split["train"], vocab, hp, spec, perms=perms)
         else:
             out = fit_latents(init["train"], decoder, split["train"], vocab, hp, spec,
                               perms=perms, validation=validation)
@@ -319,10 +344,13 @@ def run_experiment(
         opt_kind=cfg.optimizer,
         lazy_adam=lazy_adam,
     )
-    valid_embed, _, valid_losses = fit_latents(init["valid"], decoder, split["valid"], vocab,
-                                               hp, infer_spec)
-    test_embed, _, test_losses = fit_latents(init["test"], decoder, split["test"], vocab, hp,
-                                             infer_spec)
+    def infer(s):  # with a mesh the inference fits split their batches over it too
+        if mesh is None:
+            return fit_latents(init[s], decoder, split[s], vocab, hp, infer_spec)
+        return fit_latents_mesh(mesh, init[s], decoder, split[s], vocab, hp, infer_spec)
+
+    valid_embed, _, valid_losses = infer("valid")
+    test_embed, _, test_losses = infer("test")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_time = time.time() - t_train_start

@@ -7,14 +7,26 @@ Runs the hyperparameter grid in-process, K configs per chunk::
     python -m mmtpu_torch.sweep mosi --limit 100 --chunk_size 32
     python -m mmtpu_torch.sweep mosi --resume_dir sweep_ckpt   # crash-resumable
     python -m mmtpu_torch.sweep mosi --device cpu --limit 4    # on the CPU
+    torchrun --nproc_per_node 4 -m mmtpu_torch.sweep mosi --multihost  # a shard per card
+    torchrun --nproc_per_node 4 -m mmtpu_torch.sweep mosi --mesh  # each chunk over 4 cards
 
 Writes ``results/<name>.csv`` (the columns of mmtpu's: each record of
 :meth:`mmtpu_torch.sweep.runner.SweepResult.to_records` plus the config's
 grid columns) and ``results/<name>_summary.json`` (mmtpu's keys).
 
 ``--device`` defaults to ``cuda``; asking for CUDA where there is none
-raises, nothing falls back to the CPU.  ``--mesh`` and ``--multihost``
-(ROADMAP.md queue 1, parallel) raise ``NotImplementedError``.
+raises, nothing falls back to the CPU.  One process runs per rank of a
+``torch.distributed`` world (``torchrun``'s environment; a rank's device is
+``cuda:LOCAL_RANK`` for ``--device cuda``; ``--backend`` overrides the
+device's backend, NCCL for CUDA and gloo for the CPU).  ``--multihost``
+gives each process the strided shard ``configs[p::P]`` of the grid and
+gathers the results once at the end
+(:func:`mmtpu_torch.parallel.multihost.run_sweep_multihost`); without
+torchrun's environment it is one process.  ``--mesh`` shards each chunk's
+configs over the world's ranks (a world of this one process without
+torchrun's environment); under ``--multihost`` each process already sweeps
+its shard on its own card, so ``--mesh`` adds nothing there.  Rank 0 alone
+writes the results.
 ``--pallas``, ``--no_pallas`` and ``--unroll`` are refused: on the card the
 angular partition always runs in the port's own kernel (K1), and the port's
 fits run no scan to unroll.
@@ -29,8 +41,6 @@ import json
 import os
 import sys
 import time
-
-from mmtpu_torch import not_ported
 
 # the grid's columns that the CSV carries beside each record (as mmtpu's)
 CONFIG_COLUMNS = ("lr", "sentiment_lr", "n_epochs", "optimizer", "norm", "pos_embed_dim",
@@ -63,9 +73,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--out", default="results")
     parser.add_argument("--resume_dir", help="chunk checkpoint dir (resume here)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--mesh", action="store_true", help="not ported (queue 1, parallel)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="shard each chunk's configs over the world's ranks")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported (queue 1, parallel)")
+                        help="each process of torchrun's world sweeps the shard configs[p::P]; "
+                             "one gather at the end")
+    parser.add_argument("--backend", choices=["gloo", "nccl"],
+                        help="process-group backend (default: the device's)")
     parser.add_argument("--pallas", action="store_true", help="refused: " + _REFUSED["pallas"])
     parser.add_argument("--no_pallas", action="store_true",
                         help="refused: " + _REFUSED["no_pallas"])
@@ -153,7 +167,7 @@ def _write_results(args, res, configs) -> tuple:
     return records, summary
 
 
-def _persist_top_k(args, records, configs) -> None:
+def _persist_top_k(args, records, configs, device) -> None:
     """Rerun the best ``--top_k_artifacts`` configs through the full runner
     (reference-layout artifacts), on the optimizer path that selected them."""
     from mmtpu_torch.config import ExperimentConfig
@@ -181,22 +195,47 @@ def _persist_top_k(args, records, configs) -> None:
             unimodal=args.unimodal or None, emotion=args.emotion, config_name=args.name,
             seed=args.seed, semi_sup_idxes=args.semi_sup_idxes or None)
         run_experiment(cfg, data_dir=args.data_dir, run_idx=rec["run"], verbose=False,
-                       lazy_adam=not args.exact_adam, device=args.device)
+                       lazy_adam=not args.exact_adam, device=device)
         print(f"[sweep]   config {rec['config_num']} run {rec['run']} saved")
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.mesh or args.multihost:
-        raise not_ported("--mesh" if args.mesh else "--multihost", "queue 1, parallel")
-    from mmtpu_torch.data.pipeline import prepare_device_data
-    from mmtpu_torch.data.registry import load_dataset
-    from mmtpu_torch.sweep.runner import run_sweep
+    import torch.distributed as dist
 
     configs = _load_configs(args)
     if not configs:
         print("no configs found", file=sys.stderr)
         return 1
+    own_world = (args.mesh or args.multihost) and not dist.is_initialized()
+    try:
+        return _sweep(args, configs)
+    finally:
+        if own_world and dist.is_initialized():  # the group this call started ends with it
+            dist.destroy_process_group()
+
+
+def _sweep(args, configs) -> int:
+    import torch.distributed as dist
+
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.parallel.mesh import init_world, make_mesh, rank_device
+    from mmtpu_torch.parallel.multihost import init_multihost, run_sweep_multihost
+    from mmtpu_torch.sweep.runner import run_sweep
+
+    device, mesh = args.device, None
+    if args.multihost:
+        device = rank_device(args.device)
+        init_multihost(device, args.backend)
+        if args.mesh:
+            print("[sweep] --multihost: each process sweeps its shard on its own card; "
+                  "--mesh adds nothing")
+    elif args.mesh:
+        device = init_world(args.device, args.backend)
+        mesh = make_mesh(backend=args.backend)
+        print(f"[sweep] mesh over {mesh.ranks.size} rank(s)")
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
     pos_dims = tuple(sorted({c.get("pos_embed_dim", 0) for c in configs} - {0}))
     t0 = time.time()
     ds = load_dataset(args.dataset, data_dir=args.data_dir, emotion=args.emotion)
@@ -214,18 +253,24 @@ def main(argv=None) -> int:
                              seed=args.seed, data_dir=args.data_dir)
         print(f"[sweep] semi-supervised: {int(mask.sum())} labeled rows")
 
-    res = run_sweep(configs, prep, batch_size=args.batch_size, unimodal=args.unimodal,
-                    seed=args.seed, chunk_size=args.chunk_size,
-                    checkpoint_dir=args.resume_dir, n_runs=args.n_runs, senti_mask=mask,
-                    validation_curve=args.validation_curve,
+    sweep_kw = dict(batch_size=args.batch_size, unimodal=args.unimodal, seed=args.seed,
+                    chunk_size=args.chunk_size, checkpoint_dir=args.resume_dir,
+                    senti_mask=mask, validation_curve=args.validation_curve,
                     lazy_adam=False if args.exact_adam else None,
                     infer_batch_clamp=args.infer_clamp and not args.no_infer_clamp,
                     phase_timing=args.phase_timing, fused_dec_update=args.fused_dec,
                     infer_warm_start=args.infer_warm_start,
-                    infer_epochs_cap=args.infer_epochs, device=args.device)
+                    infer_epochs_cap=args.infer_epochs, device=device)
+    if args.multihost:
+        res = run_sweep_multihost(configs, prep, n_runs=args.n_runs, **sweep_kw)
+    else:
+        res = run_sweep(configs, prep, n_runs=args.n_runs, mesh=mesh, verbose=main_rank,
+                        **sweep_kw)
+    if not main_rank:
+        return 0  # rank 0 writes the CSV, the summary and the artifacts
     records, _ = _write_results(args, res, configs)
     if args.top_k_artifacts > 0:
-        _persist_top_k(args, records, configs)
+        _persist_top_k(args, records, configs, device)
     return 0
 
 

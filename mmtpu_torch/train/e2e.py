@@ -17,7 +17,11 @@ validation curve (``simplesif.py:795-799``).  ``hp["train_heads"] = 0`` freezes
 the generator heads only while the norm keeps training (the reference's e2e
 ``freeze_weights``, ``simplesif.py:689-691``, ``models.py:170-178``).  With
 ``fused_dec_update`` the decoder weights update in kernel K2
-(:func:`mmtpu_torch.train.fused.fused_joint_step`).
+(:func:`mmtpu_torch.train.fused.fused_joint_step`).  With
+``batch_shard_axis`` and ``mesh`` each step's rows split over the mesh axis
+(:func:`mmtpu_torch.parallel.fit.fit_e2e_mesh`): the sentiment MLP's
+gradients are summed over it with the decoder's, and the semi-supervised
+quirk divides by the global batch's valid rows.
 
 Under the sweep's config axis (as :func:`mmtpu_torch.train.latents.fit_latents`
 takes it) the sentiment head is per config too, ``(K, D, H)`` weights, and
@@ -31,12 +35,12 @@ from typing import Mapping, Sequence
 
 import torch
 
-from mmtpu_torch import not_ported
 from mmtpu_torch.models.decoder import is_stacked
 from mmtpu_torch.models.sentiment import apply_sentiment
 from mmtpu_torch.train.latents import (
     LatentFitSpec,
     PermutedEpoch,
+    batch_shard,
     epoch_active,
     epoch_permutation,
     finish_fit_decoder,
@@ -55,7 +59,7 @@ from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
 @dataclasses.dataclass(frozen=True)
 class E2EFitSpec:
     """Static configuration of an e2e fit (the fields of
-    :class:`mmtpu.train.e2e.E2EFitSpec` that this port runs; the others raise)."""
+    :class:`mmtpu.train.e2e.E2EFitSpec` that this port runs)."""
 
     n_epochs_max: int
     batch_size: int  # the multimodal loader's batch (cfg.batch_size)
@@ -65,7 +69,7 @@ class E2EFitSpec:
     opt_kind: str | None = None  # "sgd" | "adam"; None: from hp["opt_code"]
     valid_every: int = 0  # recursive validation cadence (0: none)
     valid_batch_mult: int = 8
-    batch_shard_axis: str | None = None  # multi-device rows: not ported
+    batch_shard_axis: str | None = None  # split each step's rows over this mesh axis
     stacked_heads: bool = False
     lazy_adam: bool = False  # epoch-level lazy Adam; needs opt_kind "adam"
     fused_dec_update: bool = False
@@ -75,7 +79,8 @@ class E2EFitSpec:
                              train_decoder=True, unimodal=self.unimodal,
                              word_metric=self.word_metric, shuffle=self.shuffle,
                              opt_kind=self.opt_kind, stacked_heads=self.stacked_heads,
-                             fused_dec_update=self.fused_dec_update, lazy_adam=self.lazy_adam)
+                             fused_dec_update=self.fused_dec_update, lazy_adam=self.lazy_adam,
+                             batch_shard_axis=self.batch_shard_axis)
 
 
 def senti_l1(sen, lat, y, mask) -> torch.Tensor:
@@ -94,7 +99,7 @@ def senti_l1(sen, lat, y, mask) -> torch.Tensor:
 def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mapping,
             labels: torch.Tensor, vocab_emb: torch.Tensor, hp: Mapping, spec: E2EFitSpec,
             senti_mask: torch.Tensor | None = None, generator: torch.Generator | None = None,
-            perms: Sequence | None = None, validation=None):
+            perms: Sequence | None = None, validation=None, mesh=None):
     """The joint fit; returns ``(embed, decoder_params, senti_params, losses)``,
     and ``valid_losses`` after them when ``validation = (valid_init,
     valid_data)`` is given and ``spec.valid_every > 0`` (as
@@ -106,10 +111,11 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     all ``(K,)``, as the inputs are there.  ``senti_mask`` is
     the per-utterance 0/1 labeled mask (None: fully supervised).  ``perms``,
     one permutation per epoch, replaces the draws from ``generator``.
+    ``mesh`` as :func:`mmtpu_torch.train.latents.fit_latents`'s.
     """
-    if spec.batch_shard_axis is not None:
-        raise not_ported("batch_shard_axis", "queue 1, parallel")
     lspec = spec.latent_spec()
+    shard = batch_shard(dataclasses.replace(lspec, valid_every=spec.valid_every), mesh, hp,
+                        init_embed, validation)
     inner_spec = None
     if validation is not None and spec.valid_every > 0:
         inner_spec = make_inner_valid_spec(lspec, spec.valid_batch_mult)
@@ -147,7 +153,10 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
         table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
         batch_losses = []
         for s in range(n_batches):
-            j = table.batch_index(s)
+            j, rv, count, blk = table.batch_index(s), valid[s], torch.sum(valid[s]), slice(None)
+            if shard is not None:  # this rank's block of the step's rows
+                blk = shard.block(bsz)
+                j, rv = j[blk], rv[blk]
             b = gather_batch(data, j)
             y = labels[j]
             mask = None if senti_mask is None else senti_mask[j]
@@ -161,19 +170,23 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
                     combine=lambda sp, neg, lat: lw * neg + (1.0 - lw) * senti_l1(sp, lat, y,
                                                                                   mask))
             else:
-                rows = table.rows(s).detach().requires_grad_()
+                rows = table.rows(s)[..., blk, :].detach().requires_grad_()
                 dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
                 sen = tree_map(lambda t: t.detach().requires_grad_(), sen)
-                neg = joint_neg_log_prob_per_sample(dec, rows, b, vocab_emb, hp, lspec, valid[s])
+                neg = joint_neg_log_prob_per_sample(dec, rows, b, vocab_emb, hp, lspec, rv,
+                                                    None if shard is None else shard.row_sum)
                 per_sample = lw * neg + (1.0 - lw) * senti_l1(sen, rows, y, mask)
-                loss = torch.sum(per_sample * valid[s], dim=-1) / torch.clamp_min(
-                    torch.sum(valid[s]), 1.0)
+                # every valid row of the (global) batch divides, labeled or not
+                loss = torch.sum(per_sample * rv, dim=-1) / torch.clamp_min(count, 1.0)
                 dec_leaves, sen_leaves = tree_leaves(dec), tree_leaves(sen)
                 # per-config means summed: each config's gradient is its own
                 grads = torch.autograd.grad(loss.sum(), [rows] + dec_leaves + sen_leaves)
-                g_rows = grads[0]
-                g_dec = tree_unflatten(dec, grads[1:1 + len(dec_leaves)])
-                g_sen = tree_unflatten(sen, grads[1 + len(dec_leaves):])
+                g_rows, g_params = grads[0], grads[1:]
+                if shard is not None:  # the global batch's row gradients, loss and sums
+                    g_rows, g_params = shard.rows(g_rows, bsz), shard.reduce_grads(g_params)
+                    loss = shard.total(loss)
+                g_dec = tree_unflatten(dec, g_params[:len(dec_leaves)])
+                g_sen = tree_unflatten(sen, g_params[len(dec_leaves):])
                 dec = tree_map(torch.Tensor.detach, dec)
                 sen = tree_map(torch.Tensor.detach, sen)
                 dec, d_opt = opt_update(dec, g_dec, d_opt, lr, None, active, kind=kind,

@@ -50,6 +50,7 @@ import torch
 from mmtpu_torch.models.decoder import (
     MMB1_HEADS,
     MMB2_HEADS,
+    NORM_BATCH,
     apply_decoder,
     apply_decoder_stacked,
     head_segments,
@@ -97,16 +98,27 @@ class LatentFitSpec:
     valid_batch_mult: int = 8
     # epoch-level lazy Adam (mmtpu_torch.train.optim); needs opt_kind "adam"
     lazy_adam: bool = False
+    # split each minibatch's rows over this axis of the fit's mesh
+    # (mmtpu_torch.parallel.fit; needs mesh=... in the fit call)
+    batch_shard_axis: str | None = None
 
 
 def _word_logprob(spec: LatentFitSpec, latents, vocab_emb, b):
-    sent = vocab_emb[b["text_ids"]]
+    """The word log-likelihood; ``vocab_emb`` is the ``(V, D)`` table or,
+    under a vocab-sharded mesh, this rank's
+    :class:`mmtpu_torch.parallel.collectives.VocabShard`."""
+    if isinstance(vocab_emb, torch.Tensor):
+        sent, table, partition, dot_partition = vocab_emb[b["text_ids"]], vocab_emb, None, None
+    else:
+        sent, table = vocab_emb.lookup(b["text_ids"]), vocab_emb.table
+        partition = lambda lat, _: vocab_emb.partition(lat)  # noqa: E731
+        dot_partition = lambda lat, _: vocab_emb.dot_partition(lat)  # noqa: E731
     if spec.word_metric == "angular":
-        return word_logprob_angular(latents, vocab_emb, b["text_weights"], sent,
-                                    b["text_mask"])
+        return word_logprob_angular(latents, table, b["text_weights"], sent, b["text_mask"],
+                                    partition_fn=partition)
     if spec.word_metric == "dot_prod":
-        return word_logprob_dot_prod(latents, vocab_emb, b["text_weights"], sent,
-                                     b["text_mask"])
+        return word_logprob_dot_prod(latents, table, b["text_weights"], sent, b["text_mask"],
+                                     partition_fn=dot_partition)
     raise NotImplementedError(spec.word_metric)
 
 
@@ -176,29 +188,37 @@ def neg_joint(head_lp: list, word_lp, hp) -> torch.Tensor:
 
 
 def joint_neg_log_prob_per_sample(decoder_params, lat, b, vocab_emb, hp, spec: LatentFitSpec,
-                                  row_valid=None) -> torch.Tensor:
+                                  row_valid=None, row_sum=None) -> torch.Tensor:
     """Per-sample negative weighted joint log-likelihood ``(B,)``, for either
-    decoder layout (per-head or stacked)."""
+    decoder layout (per-head or stacked); ``row_sum`` as
+    :func:`mmtpu_torch.models.decoder.apply_norm`'s."""
     word_lp = _word_logprob(spec, lat, vocab_emb, b)
     if is_stacked(decoder_params):
         mu_all, sigma_all = apply_decoder_stacked(decoder_params, lat, hp["norm_code"],
-                                                  batch_weights=row_valid)
+                                                  batch_weights=row_valid, row_sum=row_sum)
         return neg_joint(stacked_head_log_probs(spec, mu_all, sigma_all, b), word_lp, hp)
     heads = MMB1_HEADS if spec.unimodal else MMB2_HEADS
-    out = apply_decoder(decoder_params, lat, hp["norm_code"], batch_weights=row_valid)
+    out = apply_decoder(decoder_params, lat, hp["norm_code"], batch_weights=row_valid,
+                        row_sum=row_sum)
     head_lp = [_head_log_prob(h, out[h]["mu"], out[h]["sigma"], b) for h in heads]
     return neg_joint(head_lp, word_lp, hp)
 
 
 def batch_neg_log_prob(embed_batch, decoder_params, b, vocab_emb, hp, spec: LatentFitSpec,
-                       row_valid=None) -> torch.Tensor:
+                       row_valid=None, shard=None, n_valid=None) -> torch.Tensor:
     """Mean negative joint log-likelihood of one minibatch over its valid rows
-    (one mean per config, ``(K,)``, under a config axis)."""
+    (one mean per config, ``(K,)``, under a config axis).
+
+    Under a batch-sharded mesh (``shard``, a
+    :class:`mmtpu_torch.parallel.collectives.BatchShard`) the rows are this
+    rank's block and the result is its part of the mean: its rows' sum over
+    ``n_valid``, the global batch's valid rows."""
     neg = joint_neg_log_prob_per_sample(decoder_params, embed_batch, b, vocab_emb, hp, spec,
-                                        row_valid)
+                                        row_valid, None if shard is None else shard.row_sum)
     if row_valid is None:
         return torch.mean(neg, dim=-1)
-    return torch.sum(neg * row_valid, dim=-1) / torch.clamp_min(torch.sum(row_valid), 1.0)
+    count = torch.sum(row_valid) if n_valid is None else n_valid
+    return torch.sum(neg * row_valid, dim=-1) / torch.clamp_min(count, 1.0)
 
 
 def train_view(data: Mapping) -> dict:
@@ -374,9 +394,36 @@ def init_fit_carry(init_embed: torch.Tensor, decoder_params, spec: LatentFitSpec
     return embed, dec, init_opt_state(embed, kind, n_cfg), d_opt
 
 
+def batch_shard(spec, mesh, hp: Mapping, init_embed: torch.Tensor, validation=None):
+    """The fit's :class:`mmtpu_torch.parallel.collectives.BatchShard` over
+    ``spec.batch_shard_axis`` of ``mesh``, or None without the axis.  Its
+    batch-norm statistics are summed over the axis unless the fit's one
+    norm code, read once here, is not batch norm.  Refused with it: the
+    fused decoder update (mmtpu's ``train/fused.py:81``: the fused step is
+    per-shard), the config axis, and the validation curve (mmtpu's mesh
+    fits are no-validation programs)."""
+    axis = spec.batch_shard_axis
+    if axis is None:
+        return None
+    if mesh is None:
+        raise ValueError(f"batch_shard_axis {axis!r} needs the mesh it names (mesh=...)")
+    if spec.fused_dec_update:
+        raise ValueError("the fused decoder update is per-shard: it takes no batch_shard_axis")
+    if init_embed.ndim != 2:
+        raise ValueError("batch_shard_axis takes one config's (N, D) table, no config axis")
+    if validation is not None and spec.valid_every > 0:
+        raise ValueError("the batch-sharded fit takes no validation curve")
+    from mmtpu_torch.parallel.collectives import BatchShard  # parallel imports this module
+
+    code = torch.as_tensor(hp["norm_code"])
+    sync = code.numel() != 1 or int(code) == NORM_BATCH
+    return BatchShard(mesh.groups[axis], mesh.size(axis), mesh.index(axis), sync_stats=sync)
+
+
 def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: int, device,
-                generator, perms):
-    """One epoch of a latent fit, ``epoch(carry, epoch_idx) -> (carry, loss)``."""
+                generator, perms, shard=None):
+    """One epoch of a latent fit, ``epoch(carry, epoch_idx) -> (carry, loss)``;
+    ``shard`` splits each step's rows over a mesh axis (:func:`batch_shard`)."""
     kind = fit_kind(spec, hp)
     fused = spec.train_decoder and spec.fused_dec_update
     # mmtpu's gate: the static kind, so opt_kind=None runs dense Adam
@@ -400,7 +447,11 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
         dec_gates = None if dec_gate is None else tree_map(lambda _: dec_gate, dec)
         batch_losses = []
         for s in range(n_batches):
-            b = gather_batch(data, table.batch_index(s))
+            j, rv, n_valid, blk = table.batch_index(s), valid[s], None, slice(None)
+            if shard is not None:  # this rank's block of the step's rows
+                blk = shard.block(bsz)
+                j, rv, n_valid = j[blk], rv[blk], torch.sum(valid[s])
+            b = gather_batch(data, j)
             if fused:
                 from mmtpu_torch.train.fused import fused_joint_step
 
@@ -409,17 +460,20 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
                     dec, d_opt, table.rows(s), b, vocab_emb, hp, spec, valid[s], active,
                     heads_gate=gate, norm_gate=gate)
             else:
-                rows = table.rows(s).detach().requires_grad_()
+                rows = table.rows(s)[..., blk, :].detach().requires_grad_()
                 if spec.train_decoder:
                     dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
-                loss = batch_neg_log_prob(rows, dec, b, vocab_emb, hp, spec, valid[s])
+                loss = batch_neg_log_prob(rows, dec, b, vocab_emb, hp, spec, rv, shard, n_valid)
                 wrt = [rows] + (tree_leaves(dec) if spec.train_decoder else [])
                 # per-config means summed: each config's gradient is its own
                 grads = torch.autograd.grad(loss.sum(), wrt)
-                g_rows = grads[0]
+                g_rows, g_dec = grads[0], grads[1:]
+                if shard is not None:  # the global batch's row gradients, loss and sums
+                    g_rows, g_dec = shard.rows(g_rows, bsz), shard.reduce_grads(g_dec)
+                    loss = shard.total(loss)
                 if spec.train_decoder:
                     dec = tree_map(torch.Tensor.detach, dec)
-                    dec, d_opt = opt_update(dec, tree_unflatten(dec, grads[1:]), d_opt, lr,
+                    dec, d_opt = opt_update(dec, tree_unflatten(dec, g_dec), d_opt, lr,
                                             None, active, kind=kind, gates=dec_gates)
             table.step(s, g_rows)
             batch_losses.append(loss.detach())
@@ -483,7 +537,7 @@ def valid_curve_entry(epoch: int, spec, validation, dec, vocab_emb, hp: Mapping,
 
 def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_emb: torch.Tensor,
                 hp: Mapping, spec: LatentFitSpec, generator: torch.Generator | None = None,
-                perms: Sequence | None = None, validation=None):
+                perms: Sequence | None = None, validation=None, mesh=None):
     """Run the full latent fit; returns ``(embed, decoder_params, losses)``,
     and ``valid_losses`` after them when ``validation`` is given and
     ``spec.valid_every > 0``.
@@ -512,14 +566,20 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     ``valid_losses`` is ``(n_epochs_max + 1,)``: each refit's last-epoch
     loss, NaN between samples, the final sample last (``(K, n_epochs_max +
     1)`` under the config axis, where ``valid_init_embed`` is ``(K, N, D)``).
+
+    ``mesh`` is the :class:`mmtpu_torch.parallel.mesh.Mesh` that
+    ``spec.batch_shard_axis`` names, and ``vocab_emb`` may be this rank's
+    vocab shard of it (:func:`mmtpu_torch.parallel.fit.fit_latents_mesh`
+    sets them up; :func:`batch_shard` says what it refuses).
     """
+    shard = batch_shard(spec, mesh, hp, init_embed, validation)
     was_stacked = is_stacked(decoder_params)
     inner_spec = None
     if validation is not None and spec.valid_every > 0:
         inner_spec = make_inner_valid_spec(spec, spec.valid_batch_mult)
     carry = init_fit_carry(init_embed, decoder_params, spec, hp)
     epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[-2], carry[0].device,
-                        generator, perms)
+                        generator, perms, shard)
     losses, curve = [], []
     for e in range(spec.n_epochs_max):
         carry, loss = epoch(carry, e)

@@ -351,3 +351,49 @@ def test_alternating_fit_launches_k1_forward_only(cuda_device):
     (lat_g, _, loss_g), (lat_c, _, loss_c) = out.values()
     torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=2e-4, atol=0)
     torch.testing.assert_close(lat_g.cpu(), lat_c, rtol=0, atol=2e-4)
+
+
+@pytest.fixture
+def card_world_of_one(cuda_device):
+    """A gloo process group of this one process around a test on the card."""
+    from mmtpu_torch.parallel.mesh import init_world
+
+    init_world(cuda_device, "gloo")
+    try:
+        yield cuda_device
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v_shard", [(32, 1508), (16, 754), (64, 1508), (256, 1508)])
+def test_sharded_partition_matches_plain(card_world_of_one, b, v_shard):
+    """``ShardedAngularPartition`` on the card, with its all-reduces over a
+    group of one rank, at the mesh fits' shard shapes (MOSI's 3016 rows over
+    2 and 4 vocabulary ranks; 64- and 512-row batches over 2 and 4 data
+    ranks): Z and the latent gradient against K1's plain versions on the
+    shard (K1's gates), one K1 launch of each kind; and the shards of the
+    whole vocabulary, each through its own call, sum to the plain Z of the
+    whole (rtol 1e-5)."""
+    from mmtpu_torch.parallel.collectives import shard_vocab
+
+    dev = card_world_of_one
+    gen = torch.Generator().manual_seed(b)
+    lat = torch.randn(b, 300, generator=gen).to(dev).requires_grad_()
+    vocab = torch.randn(3016, 300, generator=gen).to(dev)
+    g = torch.randn(b, 1, generator=gen).to(dev)
+    n = 3016 // v_shard
+    shards = [shard_vocab(vocab, torch.distributed.group.WORLD, n, i) for i in range(n)]
+    before = dict(K.LAUNCHES)
+    z = shards[0].partition(lat)
+    (dl,) = torch.autograd.grad(z, lat, g)
+    assert {k: K.LAUNCHES[k] - before[k] for k in before} == {"fwd": 1, "bwd": 1}
+    s = shards[0]
+    torch.testing.assert_close(z, K.angular_partition_ref(lat.detach(), s.table),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(dl, K.angular_partition_bwd_ref(lat.detach(), s.table, s.vnorm,
+                                                               g), rtol=0, atol=1e-5)
+    with torch.no_grad():
+        total = sum(sh.partition(lat) for sh in shards)
+    torch.testing.assert_close(total, K.angular_partition_ref(lat.detach(), vocab), rtol=1e-5,
+                               atol=0)

@@ -31,6 +31,7 @@ from mmtpu_torch import runner as trunner
 from mmtpu_torch.convert import to_numpy, to_torch
 from mmtpu_torch.train import e2e as te2e
 from mmtpu_torch.train import latents as tl
+from tests.test_torch_parallel import world_of_one  # noqa: F401
 from tests.test_torch_runner import JaxDraws, _cfg_file, _perms, _predict, _tiny_prep
 
 
@@ -168,10 +169,41 @@ def test_fit_e2e_train_heads_gate(rng, fused):
 
 
 @pytest.mark.parametrize("kw", [{"batch_shard_axis": "data"}])
-def test_fit_e2e_unported_options_raise(kw):
-    spec = te2e.E2EFitSpec(n_epochs_max=1, batch_size=4, unimodal=False, opt_kind="sgd", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te2e.fit_e2e(torch.zeros(4, 3), {}, {}, {}, torch.zeros(4), torch.zeros(5, 3), {}, spec)
+def test_fit_e2e_unported_options_raise(kw, rng, world_of_one):
+    """``batch_shard_axis`` (refused before the mesh fits were ported) runs
+    on a mesh of one rank and ends on the unsharded fit bit for bit; it
+    still refuses what mmtpu refuses: no mesh to name the axis, and the
+    fused decoder update, which is per-shard (mmtpu/train/fused.py:81).
+    The multi-rank fits: tests/test_torch_parallel.py."""
+    from mmtpu_torch.parallel.fit import make_fit_mesh
+
+    n, d = 10, 6
+    dec = to_torch(init_decoder(jax.random.key(1), d, 3, 2, unimodal=False))
+    sen = to_torch(init_sentiment(jax.random.key(2), d, 4, 1))
+    data = {"text_ids": torch.tensor(rng.integers(0, 12, (n, 4))),
+            "text_weights": torch.tensor(rng.random((n, 4), np.float32)),
+            "text_mask": torch.ones(n, 4)}
+    for s, f in (("audio", 3), ("visual", 2), ("text_gauss", d)):
+        data.update({f"{s}_s0": torch.full((n, f), 4.0),
+                     f"{s}_s1": torch.tensor(rng.standard_normal((n, f)).astype(np.float32)),
+                     f"{s}_s2": torch.tensor(rng.random((n, f)).astype(np.float32) + 4.0)})
+    hp = {"lr": torch.tensor(1e-2), "word_loss_weight": torch.tensor(0.01),
+          "likelihood_weight": torch.tensor(0.5), "opt_code": OPT_CODES["sgd"],
+          "norm_code": NORM_CODES["batch_norm"], "n_epochs": 2}
+    args = (torch.tensor(rng.standard_normal((n, d)).astype(np.float32)), dec, sen, data,
+            torch.tensor(rng.standard_normal(n).astype(np.float32)),
+            torch.tensor(rng.standard_normal((12, d)).astype(np.float32)), hp)
+    spec = te2e.E2EFitSpec(n_epochs_max=2, batch_size=4, unimodal=False, opt_kind="sgd", **kw)
+    perms = [rng.permutation(n) for _ in range(2)]
+    got = te2e.fit_e2e(*args, spec, perms=perms, mesh=make_fit_mesh(1, 1))
+    want = te2e.fit_e2e(*args, dataclasses.replace(spec, batch_shard_axis=None), perms=perms)
+    for a, b in zip(got, want):
+        jax.tree.map(np.testing.assert_array_equal, to_numpy(a), to_numpy(b))
+    with pytest.raises(ValueError, match="needs the mesh"):
+        te2e.fit_e2e(*args, spec)
+    with pytest.raises(ValueError, match="per-shard"):
+        te2e.fit_e2e(*args, dataclasses.replace(spec, fused_dec_update=True),
+                     mesh=make_fit_mesh(1, 1))
 
 
 @pytest.mark.parametrize("dataset,opt,norm,extra", [

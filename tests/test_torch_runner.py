@@ -164,10 +164,15 @@ def test_divergence_is_recorded(tmp_path):
     assert (tmp_path / "div" / "config_0_run_0" / "post" / "test_results_after.json").is_file()
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": object(), "validation_curve": True},
+                                {"mesh": object(), "resume_dir": "ck"}])
 def test_unported_options_raise(kw):
+    """``mesh`` runs (it raised before the mesh fits were ported: a world of
+    one in tests/test_torch_aux.py, several ranks in
+    tests/test_torch_parallel.py); with it, mmtpu's own refusals stand:
+    the validation curve, and the resumable fit (mmtpu/runner.py:198-205)."""
     cfg = ExperimentConfig(dataset="mosi", e2e=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md: queue 1, parallel"):
+    with pytest.raises(ValueError, match="--mesh"):
         trunner.run_experiment(cfg, prep=_tiny_prep(), device="cpu", **kw)
 
 
@@ -207,10 +212,12 @@ def test_cli_main_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--device", "cuda", "--e2e", "n"], RuntimeError),
-    (["--device", "cpu", "--mesh"], NotImplementedError),
-    (["--device", "cpu", "--e2e", "n", "--profile"], NotImplementedError),
+    (["--device", "cpu", "--mesh", "--validation_curve"], ValueError),
+    (["--device", "cpu", "--e2e", "n", "--mesh", "data", "--resume_dir", "ck"], ValueError),
 ])
 def test_cli_refuses(tmp_path, monkeypatch, argv, exc):
+    """A CUDA device where there is none, and mmtpu's refusals of ``--mesh``
+    (``--mesh`` and ``--profile`` themselves run: tests/test_torch_aux.py)."""
     if argv[1] == "cuda" and torch.cuda.is_available():
         pytest.skip("this case needs a machine without CUDA")
     monkeypatch.setattr(trunner, "prepare", lambda cfg, data_dir: _tiny_prep())
@@ -229,7 +236,9 @@ sys.modules["mmtpu"] = None
 import mmtpu_torch, mmtpu_torch.runner, mmtpu_torch.run, mmtpu_torch.kernels.angular
 import mmtpu_torch.kernels.decoder_update, mmtpu_torch.train.fused, mmtpu_torch.ops
 import mmtpu_torch.serve, mmtpu_torch.analysis, mmtpu_torch.models.legacy
-import mmtpu_torch.train.alternating, mmtpu_torch.train.warm_start
+import mmtpu_torch.train.alternating, mmtpu_torch.train.warm_start, mmtpu_torch.parallel
+import mmtpu_torch.utils.guards, mmtpu_torch.utils.logging, mmtpu_torch.utils.profiling
+import mmtpu_torch.make_configs
 from mmtpu_torch.config import ExperimentConfig
 from mmtpu_torch.data.pipeline import prepare_device_data
 from mmtpu_torch.data.synthetic import synthesize_dataset
@@ -265,9 +274,11 @@ def _imported_modules(path):
 
 
 def test_port_sources_import_neither_jax_nor_mmtpu():
-    """Every module of the port and chip_smoke.py, parsed: no import of jax
-    or mmtpu anywhere, at top level or inside a function."""
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    """Every module of the port, chip_smoke.py and the port's test workers,
+    parsed: no import of jax or mmtpu anywhere, at top level or inside a
+    function."""
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "_torch_parallel_worker.py")]
     for root, _, files in os.walk(os.path.join(REPO, "mmtpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 25

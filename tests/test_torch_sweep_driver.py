@@ -259,14 +259,14 @@ def test_cli_writes_mmtpu_columns(tmp_path, tiny_registry, references):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--mesh"], NotImplementedError, "queue 1, parallel"),
-    (["--multihost"], NotImplementedError, "queue 1, parallel"),
     (["--pallas"], SystemExit, "always runs in the port's kernel K1"),
     (["--no_pallas"], SystemExit, "always runs in the port's kernel K1"),
     (["--unroll", "2"], SystemExit, "not scans"),
 ])
 def test_cli_refuses_what_the_port_has_not(flags, error, match, tmp_path, tiny_registry,
                                            capsys):
+    """The TPU flags (``--mesh`` and ``--multihost`` run since the parallel
+    package was ported: tests/test_torch_multihost.py)."""
     argv = ["mosi", "--limit", "1", "--batch_size", "8", "--device", "cpu", "--data_dir",
             str(tmp_path), "--out", str(tmp_path / "results")] + flags
     with pytest.raises(error) as exc:

@@ -36,6 +36,8 @@ from mmtpu_torch.sweep.runner import (SweepDraws, _draws_for, _execute, chunk_st
                                       run_config_alone)
 from mmtpu_torch.train import latents as tl
 from mmtpu_torch.train.sentiment import SentimentFitSpec, fit_sentiment
+from mmtpu_torch.parallel.mesh import Mesh, make_mesh
+from tests.test_torch_parallel import world_of_one  # noqa: F401
 from tests.test_torch_runner import REPO, _perms
 from tests.test_torch_sweep import (  # noqa: F401
     BATCH, grid, jax_draws, one_torch_thread, tiny_prep)
@@ -186,10 +188,19 @@ def test_mixed_optimizers_raise(prep):
         _chunk(configs, prep)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}])
-def test_unported_options_raise(prep, kw):
-    with pytest.raises(NotImplementedError, match="queue 1, parallel"):
+@pytest.mark.parametrize("kw", [{"mesh": Mesh(("data", "vocab"), np.zeros((1, 1), int), (0, 0),
+                                                {})}])
+def test_unported_options_raise(prep, kw, world_of_one):
+    """``mesh`` runs (it raised before the parallel package was ported): a
+    chunk over a config mesh of one rank is the chunk without it, bit for
+    bit (two ranks: tests/test_torch_multihost.py); a mesh without a
+    "config" axis is refused."""
+    with pytest.raises(ValueError, match="'config' axis"):
         _chunk(grid("adam"), prep, **kw)
+    configs = grid("adam")
+    got, want = _chunk(configs, prep, mesh=make_mesh()), _chunk(configs, prep)
+    for i in range(len(configs)):
+        _assert_config(got, i, want, i)
 
 
 def test_warm_started_chunk_matches_mmtpu(prep):
