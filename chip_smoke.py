@@ -110,9 +110,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    4's training fit through ``fit_latents_mesh`` on (2, 1) with batch norm
    (at lr 1e-5) and on (1, 2), each held to the same finite fit on one device (loss rtol 2e-4 /
    atol 1e-5, embeddings and decoder rtol 2e-3 / atol 2e-5) with K1 once
-   per step of each kind on every rank, then ``run_sweep_multihost`` over
+   per step of each kind on every rank; on the (2, 2) and (1, 2) meshes
+   each rank's vocabulary-sharded Z and its latent gradient on the fit's
+   first batch against the plain versions over the whole vocabulary, and
+   that step's loss and latent gradient against one device (1e-5 of the
+   loss and of the gradient's largest entry, ``vocab_shard_check``); then ``run_sweep_multihost`` over
    eight SGD grid configs cut to 1-2 epochs with the fused decoder update,
-   held to ``run_sweep`` in this process (rtol 2e-4); and ``torchrun
+   every config finite and held to ``run_sweep`` in this process (rtol
+   2e-4); and ``torchrun
    --nproc_per_node 1`` of ``mmtpu_torch.run ... --mesh data,vocab`` over
    NCCL, held to phase 4's run; each part's wall seconds, printed as N ranks
    sharing one card, not a scaling number;
@@ -1613,6 +1618,12 @@ MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2e-3, 2e-5
 # only by float order; Adam's lr x sign(g) first step would move a few
 # coordinates by lr (phase 11)
 MULTIHOST_RTOL = 2e-4
+# one step's loss and latent gradient on a vocab-sharded mesh against one
+# device with the whole table: relative error of the loss, and of the
+# gradient against its largest entry (entries reach ~1e2 at MOSI width, and
+# the batch split's float order moves them by ~1e-6 of that, the card's
+# reading; a gradient part counted twice moves them by O(1))
+STEP_MAX_REL = 1e-5
 MESH_SHARED = "N ranks sharing one card, not a scaling number"
 WORKER_TIMEOUT_S = 600
 
@@ -1735,6 +1746,70 @@ def _sweep_columns(res) -> dict:
             **{f"m:{k}": v for k, v in res.metrics.items()}}
 
 
+def vocab_shard_check(torch, K, mesh, dev, data_dir: str) -> dict:
+    """On a vocab-sharded ``mesh``, the first batch of phase 4's training
+    fit through the fit's own placement (``place_fit_inputs``: this rank's
+    ``VocabShard`` and batch block).  (1) ``Z`` of this rank's rows and its
+    latent gradient under a cotangent held alike by the ranks, against the
+    plain versions over the whole 3016-row vocabulary at phase 2's gates;
+    the latents are SIF vectors of norm ~0.1, whose gradients reach ~1e2,
+    so phase 2's unit-scale atol holds relative to the gradient's largest
+    entry (stricter than its max-rel gate).  (2) The step's loss and its latent gradient as the fit takes
+    them (``batch_neg_log_prob``, ``BatchShard.total`` / ``rows``) against
+    the same loss on one device with the whole table, at ``STEP_MAX_REL``.  A ``Z`` left unsummed over the vocab group, or a latent
+    gradient summed over it whole (the heads' part counted n_v times),
+    fails here: the fits cannot show either, as the word term's weight
+    (0.002) keeps its change below the embeddings' ulp at lr 1e-4."""
+    from mmtpu_torch.parallel.collectives import VocabShard
+    from mmtpu_torch.parallel.fit import place_fit_inputs
+    from mmtpu_torch.train.latents import batch_neg_log_prob, batch_shard, gather_batch
+
+    emb0, dec, data, vocab, hp, spec, perms = _latent_inputs(
+        torch, smoke_config(False), data_dir, dev)
+    shard_v, spec_m = place_fit_inputs(mesh, vocab, spec, "data", "vocab")
+    if not isinstance(shard_v, VocabShard) or shard_v.table.shape[0] == vocab.shape[0]:
+        raise AssertionError(f"the vocabulary is not sharded on the {mesh.shape} mesh")
+    bsz = spec.batch_size
+    j = torch.as_tensor(perms[0][:bsz], device=dev)
+    shard_b = batch_shard(spec_m, mesh, hp, emb0)
+    blk = shard_b.block(bsz)
+    lat_all = emb0[j]
+    lat = lat_all[blk].contiguous()
+    g = torch.randn(bsz, 1, generator=torch.Generator().manual_seed(170)).to(dev)[blk]
+
+    lat_m = lat.clone().requires_grad_()
+    z_m = shard_v.partition(lat_m)
+    (dl_m,) = torch.autograd.grad(torch.sum(z_m * g), lat_m)
+    z_p = K.angular_partition_ref(lat, vocab)
+    dl_p = K.angular_partition_bwd_ref(lat, vocab, torch.linalg.vector_norm(vocab, dim=-1), g)
+    z_sum_rel = abs(z_m.sum().item() - z_p.sum().item()) / abs(z_p.sum().item())
+    z_rel = ((z_m - z_p).abs() / z_p.abs()).max().item()
+    dl_rel = ((dl_m - dl_p).abs().max() / dl_p.abs().max()).item()
+    if not (z_sum_rel < FWD_SUM_REL and z_rel < FWD_RTOL):
+        raise AssertionError(f"{mesh.shape} mesh: the sharded Z is not the whole "
+                             f"vocabulary's (sum rel {z_sum_rel:.3e}, elem rel {z_rel:.3e})")
+    if not dl_rel < GRAD_ATOL:
+        raise AssertionError(f"{mesh.shape} mesh: the sharded Z's latent gradient is not the "
+                             f"whole vocabulary's (max rel {dl_rel:.3e})")
+
+    valid = torch.ones(bsz, device=dev)
+    rows = lat.clone().requires_grad_()
+    loss = batch_neg_log_prob(rows, dec, gather_batch(data, j[blk]), shard_v, hp, spec_m,
+                              valid[blk], shard_b, torch.sum(valid))
+    (g_rows,) = torch.autograd.grad(loss, rows)
+    loss, g_rows = shard_b.total(loss), shard_b.rows(g_rows, bsz)
+    rows_1 = lat_all.clone().requires_grad_()
+    loss_1 = batch_neg_log_prob(rows_1, dec, gather_batch(data, j), vocab, hp, spec, valid)
+    (g_1,) = torch.autograd.grad(loss_1, rows_1)
+    loss_rel = abs(loss.item() - loss_1.item()) / abs(loss_1.item())
+    g_rel = ((g_rows - g_1).abs().max() / g_1.abs().max()).item()
+    if not (loss_rel < STEP_MAX_REL and g_rel < STEP_MAX_REL):
+        raise AssertionError(f"{mesh.shape} mesh: one step's loss (rel {loss_rel:.3e}) or "
+                             f"latent gradient (max rel {g_rel:.3e}) is not one device's")
+    return {"z_elem_rel": z_rel, "z_grad_max_rel": dl_rel, "step_loss_rel": loss_rel,
+            "step_grad_max_rel": g_rel}
+
+
 def mesh_worker(argv: list) -> int:
     """One rank of phase 17's worlds (``chip_smoke.py --mesh-worker JOB TMP``
     under torchrun): CUDA ranks sharing card 0 over gloo.  ``e2e``: the
@@ -1742,9 +1817,10 @@ def mesh_worker(argv: list) -> int:
     the non-e2e training fit through ``fit_latents_mesh`` on (2, 1)
     (``mesh_bn_config``) and (1, 2) (phase 4's config), then
     ``run_sweep_multihost`` over ``multihost_configs`` with the fused
-    decoder update.  Each rank writes
-    ``<job>_rank<r>.json`` (its kernel launches, seconds, backend and
-    device); rank 0 also ``<job>.pt`` (the results)."""
+    decoder update.  On the (2, 2) and (1, 2) meshes each rank also runs
+    :func:`vocab_shard_check`.  Each rank writes ``<job>_rank<r>.json``
+    (its kernel launches, seconds, backend, device and vocab-shard check);
+    rank 0 also ``<job>.pt`` (the results)."""
     import torch
     import torch.distributed as dist
 
@@ -1786,18 +1862,23 @@ def mesh_worker(argv: list) -> int:
             return fits[-1]
 
         runner.fit_e2e_mesh = recording
+        mesh = pfit.make_fit_mesh(2, 2)
         part("e2e_2x2", lambda: runner.run_experiment(
             cfg, prep=prep, out_root=os.path.join(tmp, "out_mesh"),
-            mesh=pfit.make_fit_mesh(2, 2), device=dev, verbose=False)["final_train_loss"])
+            mesh=mesh, device=dev, verbose=False)["final_train_loss"])
         keep["e2e_2x2"] = {"final_loss": keep["e2e_2x2"], "fit": [to_numpy(x) for x in fits[0]]}
+        info["vocab_shard_2x2"] = vocab_shard_check(torch, K, mesh, dev, data_dir)
     else:
         from mmtpu_torch.parallel.multihost import run_sweep_multihost
 
         for name, shape, cfg in (("latents_2x1", (2, 1), mesh_bn_config()),
                                  ("latents_1x2", (1, 2), smoke_config(False))):
             emb0, dec, data, vocab, hp, spec, perms = _latent_inputs(torch, cfg, data_dir, dev)
+            mesh = pfit.make_fit_mesh(*shape)
             part(name, lambda: [to_numpy(x) for x in pfit.fit_latents_mesh(
-                pfit.make_fit_mesh(*shape), emb0, dec, data, vocab, hp, spec, perms=perms)])
+                mesh, emb0, dec, data, vocab, hp, spec, perms=perms)])
+        # on the last mesh, (1, 2)
+        info["vocab_shard_1x2"] = vocab_shard_check(torch, K, mesh, dev, data_dir)
         configs = multihost_configs()
         prep = _multihost_prep(data_dir, configs)
         part("sweep_multihost", lambda: _sweep_columns(run_sweep_multihost(
@@ -1885,11 +1966,12 @@ def run_mesh(torch, K, T, tmp: str, non_e2e: dict, e2e: dict) -> dict:
     ``run_experiment(mesh=(2, 2))``, two run phase 4's training fit through
     ``fit_latents_mesh`` on (2, 1) with batch norm (``mesh_bn_config``) and on
     (1, 2), each held to the same fit on one device (phase 5's, a batch-norm
-    fit here, and phase 4's), all finite, with K1 once per step on every rank; (c) ``torchrun
+    fit here, and phase 4's), all finite, with K1 once per step on every
+    rank, and each rank's :func:`vocab_shard_check` on (2, 2) and (1, 2); (c) ``torchrun
     --nproc_per_node 1 -m mmtpu_torch.run ... --mesh data,vocab`` over NCCL,
     held to phase 4's run; (d) the two ranks' ``run_sweep_multihost`` over
-    ``multihost_configs`` with the fused decoder update, held to
-    ``run_sweep`` in this process.  The worlds run side by side with this
+    ``multihost_configs`` with the fused decoder update, every config
+    finite on both sides and held to ``run_sweep`` in this process.  The worlds run side by side with this
     process's references; each part's wall seconds are printed as such."""
     import numpy as np
 
@@ -1966,6 +2048,10 @@ def run_mesh(torch, K, T, tmp: str, non_e2e: dict, e2e: dict) -> dict:
     got_sweep, want_sweep = got_fits["sweep_multihost"], _sweep_columns(sweep_ref)
     if got_sweep["config_nums"].tolist() != want_sweep["config_nums"].tolist():
         raise AssertionError("the multi-process sweep's configs are not the sweep's")
+    finite = [int(np.isfinite(c["final_train_loss"]).sum()) for c in (got_sweep, want_sweep)]
+    if finite != [len(configs)] * 2:
+        raise AssertionError(f"finite final losses {finite} of {len(configs)} configs "
+                             "(multi-process, one process): a diverged config tests nothing")
     diffs["sweep_multihost"] = {k: _close(got_sweep[k], v, MULTIHOST_RTOL, 0.0)
                                 for k, v in want_sweep.items() if k != "config_nums"}
     sweep_launches = [i["sweep_multihost"]["launches"] for i in fit_info]
@@ -1977,7 +2063,6 @@ def run_mesh(torch, K, T, tmp: str, non_e2e: dict, e2e: dict) -> dict:
         if any(launched[k] != v for k, v in want.items()):
             raise AssertionError(f"multi-process sweep rank {r} launched {launched}, "
                                  f"expected {want}")
-    finite = int(np.isfinite(want_sweep["final_train_loss"]).sum())
 
     seconds = {"e2e_2x2 (4 ranks)": [round(i["e2e_2x2"]["s"], 3) for i in e2e_info],
                "latents_2x1 (2 ranks)": [round(i["latents_2x1"]["s"], 3) for i in fit_info],
@@ -1990,12 +2075,17 @@ def run_mesh(torch, K, T, tmp: str, non_e2e: dict, e2e: dict) -> dict:
         f"bwd {bwd_err:.3e}")
     log(f"[mesh] K1 launches per rank: {k1}; NCCL run (1 rank, torchrun) {nccl_launches}; "
         f"multi-process sweep per rank {sweep_launches}")
+    vocab_checks = {"e2e_2x2": [i["vocab_shard_2x2"] for i in e2e_info],
+                    "fits_1x2": [i["vocab_shard_1x2"] for i in fit_info]}
     log(f"[mesh] against one device, largest differences: {diffs}; sweep configs finite "
-        f"{finite}/{len(configs)}")
+        f"{finite[0]}/{len(configs)}")
+    log(f"[mesh] vocab-sharded Z and one step's gradient per rank against the whole "
+        f"vocabulary: {vocab_checks}")
     log(f"[mesh] wall seconds ({MESH_SHARED}): {seconds}")
     return {"k1_fwd_err": fwd_err, "k1_bwd_err": bwd_err, "k1_launches": k1,
             "k1_launches_nccl": nccl_launches, "sweep_launches": sweep_launches,
-            "diffs": diffs, "seconds": seconds, "finite_sweep_configs": finite}
+            "diffs": diffs, "vocab_checks": vocab_checks, "seconds": seconds,
+            "finite_sweep_configs": finite[0]}
 
 
 def run_aux(tmp: str) -> dict:
@@ -2239,7 +2329,8 @@ def main() -> int:
                   "sweep_warm_chunk": {k: v for k, v in warm.items() if k != "launches"},
                   "alternating": {k: v for k, v in alternating.items() if k != "launches"},
                   "numeric_ops": ops,
-                  "mesh": {k: mesh[k] for k in ("diffs", "seconds", "finite_sweep_configs")},
+                  "mesh": {k: mesh[k] for k in ("diffs", "vocab_checks", "seconds",
+                                                "finite_sweep_configs")},
                   "aux": {k: aux[k] for k in ("trace_kernels", "trace_k1", "wall_s")}},
         "card": smi}
     print(json.dumps(record), flush=True)

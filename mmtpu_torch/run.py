@@ -9,7 +9,7 @@ Usage::
         [--emotion E] [--optimizer {sgd,adam}] [--norm {layer_norm,batch_norm}]
         [--likelihood_weight F] [--data_dir DIR] [--out_root DIR] [--parity]
         [--seed N] [--no_artifacts] [--lazy_adam] [--validation_curve]
-        [--resume_dir DIR] [--time_test] [--mesh [AXES]] [--backend {gloo,nccl}]
+        [--resume_dir DIR] [--time_test] [--mesh [AXES]]
         [--profile [DIR]]
 
     torchrun --nproc_per_node N -m mmtpu_torch.run <config.json> mosi --mesh data,vocab
@@ -35,11 +35,9 @@ from the trained decoder and prints ``time taken:``.
 a ``torch.distributed`` world, one process per rank: ``torchrun``'s world
 where its environment is set, else a world of this one process (its
 collectives still run).  A rank's device is ``cuda:LOCAL_RANK`` for
-``--device cuda``; ``--backend`` overrides the device's backend (NCCL for
-CUDA, gloo for the CPU): ranks that share one card need
-``--device cuda:0 --backend gloo``.  The first rank alone writes the
-artifacts and prints.  ``--profile DIR`` runs under ``torch.profiler`` and
-writes a Chrome trace into ``DIR``
+``--device cuda`` and its backend NCCL (gloo for the CPU).  The first rank
+alone writes the artifacts and prints.  ``--profile DIR`` runs under
+``torch.profiler`` and writes a Chrome trace into ``DIR``
 (:func:`mmtpu_torch.utils.profiling.trace`).
 """
 
@@ -86,8 +84,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--precision", choices=["default", "highest"], help=argparse.SUPPRESS)
     parser.add_argument("--pallas", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--mesh", metavar="AXES", nargs="?", const="data,vocab")
-    parser.add_argument("--backend", choices=["gloo", "nccl"],
-                        help="process-group backend of --mesh (default: the device's)")
     parser.add_argument("--lazy_adam", action="store_true")
     parser.add_argument("--resume_dir", metavar="DIR")
     parser.add_argument("--seed", type=int, default=0)
@@ -96,7 +92,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def _parse_mesh(spec: str, backend=None):
+def _parse_mesh(spec: str):
     """'data' | 'vocab' | 'data,vocab' | 'data=4,vocab=2' -> a
     :func:`mmtpu_torch.parallel.fit.make_fit_mesh` ("data", "vocab") mesh
     over the world's ranks (mmtpu's ``run.py:95-116``, over ranks in place
@@ -119,7 +115,7 @@ def _parse_mesh(spec: str, backend=None):
     if "data" in sizes and "vocab" in sizes and n_b is None and n_v is None:
         n_v = 2 if n % 2 == 0 and n > 1 else 1  # default split
         n_b = n // n_v
-    return make_fit_mesh(n_b, n_v, backend)
+    return make_fit_mesh(n_b, n_v)
 
 
 def main(argv=None) -> int:
@@ -137,8 +133,8 @@ def main(argv=None) -> int:
         from mmtpu_torch.parallel.mesh import init_world
 
         own_world = not dist.is_initialized()
-        device = init_world(args.device, args.backend)
-        mesh = _parse_mesh(args.mesh, args.backend)
+        device = init_world(args.device)
+        mesh = _parse_mesh(args.mesh)
     else:
         device = torch.device(args.device)
         if device.type == "cuda" and not torch.cuda.is_available():

@@ -17,10 +17,9 @@ grid columns) and ``results/<name>_summary.json`` (mmtpu's keys).
 ``--device`` defaults to ``cuda``; asking for CUDA where there is none
 raises, nothing falls back to the CPU.  One process runs per rank of a
 ``torch.distributed`` world (``torchrun``'s environment; a rank's device is
-``cuda:LOCAL_RANK`` for ``--device cuda``; ``--backend`` overrides the
-device's backend, NCCL for CUDA and gloo for the CPU).  ``--multihost``
-gives each process the strided shard ``configs[p::P]`` of the grid and
-gathers the results once at the end
+``cuda:LOCAL_RANK`` for ``--device cuda``, its backend NCCL for CUDA and
+gloo for the CPU).  ``--multihost`` gives each process the strided shard
+``configs[p::P]`` of the grid and gathers the results once at the end
 (:func:`mmtpu_torch.parallel.multihost.run_sweep_multihost`); without
 torchrun's environment it is one process.  ``--mesh`` shards each chunk's
 configs over the world's ranks (a world of this one process without
@@ -78,8 +77,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--multihost", action="store_true",
                         help="each process of torchrun's world sweeps the shard configs[p::P]; "
                              "one gather at the end")
-    parser.add_argument("--backend", choices=["gloo", "nccl"],
-                        help="process-group backend (default: the device's)")
     parser.add_argument("--pallas", action="store_true", help="refused: " + _REFUSED["pallas"])
     parser.add_argument("--no_pallas", action="store_true",
                         help="refused: " + _REFUSED["no_pallas"])
@@ -227,13 +224,13 @@ def _sweep(args, configs) -> int:
     device, mesh = args.device, None
     if args.multihost:
         device = rank_device(args.device)
-        init_multihost(device, args.backend)
+        init_multihost(device)
         if args.mesh:
             print("[sweep] --multihost: each process sweeps its shard on its own card; "
                   "--mesh adds nothing")
     elif args.mesh:
-        device = init_world(args.device, args.backend)
-        mesh = make_mesh(backend=args.backend)
+        device = init_world(args.device)
+        mesh = make_mesh()
         print(f"[sweep] mesh over {mesh.ranks.size} rank(s)")
     main_rank = not dist.is_initialized() or dist.get_rank() == 0
     pos_dims = tuple(sorted({c.get("pos_embed_dim", 0) for c in configs} - {0}))

@@ -8,8 +8,8 @@ logs (``simplesif.py:64,144``) and the ``--time_test`` timing
   Chrome trace (``chrome://tracing``, Perfetto) naming the host ops and, on
   the card, the device kernels (K1's and K2's among them);
 - :class:`StepTimer`, steady-state step timing with warm-up calls left out;
-  each call's output is waited for (``torch.cuda.synchronize()`` where a
-  tensor lies on the card) before its clock stops.
+  the card's queued work is waited for (``torch.cuda.synchronize()``)
+  before a step's clock stops, in the ``with`` form and in ``time_fn``.
 """
 
 from __future__ import annotations
@@ -65,6 +65,8 @@ class StepTimer:
         return self
 
     def __exit__(self, *exc):
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         self.times.append(time.perf_counter() - self._t0)
         return False
 

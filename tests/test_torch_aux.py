@@ -79,6 +79,19 @@ def test_step_timer():
     assert len(ctx.steady) == 2 and tprof.StepTimer().summary() == {}
 
 
+def test_step_timer_with_block_waits_for_the_card(monkeypatch):
+    """The ``with`` form waits for the card's queued work before its clock
+    stops, as ``time_fn`` does (here a stand-in for the card records it)."""
+    events = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: events.append("sync"))
+    monkeypatch.setattr(tprof.time, "perf_counter",
+                        lambda: events.append("clock") or float(len(events)))
+    with tprof.StepTimer(warmup=0) as timer:
+        events.append("work")
+    assert events == ["clock", "work", "sync", "clock"] and timer.times == [3.0]
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     with tprof.trace(str(tmp_path / "tr")):
         torch.ones(64, 64) @ torch.ones(64, 64)

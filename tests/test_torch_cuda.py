@@ -397,3 +397,18 @@ def test_sharded_partition_matches_plain(card_world_of_one, b, v_shard):
         total = sum(sh.partition(lat) for sh in shards)
     torch.testing.assert_close(total, K.angular_partition_ref(lat.detach(), vocab), rtol=1e-5,
                                atol=0)
+
+
+@pytest.mark.cuda
+def test_step_timer_with_block_waits_for_the_card(cuda_device):
+    """``StepTimer``'s ``with`` form stops its clock only once the work
+    queued in the block has run on the card."""
+    from mmtpu_torch.utils.profiling import StepTimer
+
+    x = torch.randn(4096, 4096, device=cuda_device)
+    done = torch.cuda.Event()
+    with StepTimer(warmup=0) as timer:
+        for _ in range(8):
+            x = x @ x / 64.0
+        done.record()
+    assert done.query() and len(timer.times) == 1
