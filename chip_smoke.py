@@ -7,16 +7,18 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 0. the card's name and power limit; TF32 off for matmuls and cuDNN;
 1. build the CUDA kernel library from ``mmtpu_torch/csrc`` (one ``nvcc`` per
-   source, side by side; timed), K1's resident blocks per SM at D = 300
-   and 512 and K2's (Adam and SGD; at any depth) from the runtime's
-   occupancy query;
+   source, side by side; timed), K1's resident blocks per SM at D = 300,
+   512, 768, 1024 and 2048, its backward's depth slices there, and K2's
+   (Adam and SGD; at any depth) from the runtime's occupancy query;
 2. kernel K1 (angular partition, forward and backward) against its plain
    PyTorch versions at the main path's shapes (64, 512 and 32 rows: the
    fits' batches and the alternating fit's), plus a ragged shape and a
-   zero latent row, with the forward and the backward each called twice and
-   required bit for bit equal; kernel and plain times at 64 and 512 rows
-   (device time per call from queued bursts, and the median of single
-   calls) and the bounds at both;
+   zero latent row, and at depths of several depth chunks and slices (513,
+   767, 768, 1024 and 2048), with the forward and the backward each called
+   twice and required bit for bit equal; kernel and plain times at 64 and
+   512 rows (device time per call from queued bursts, and the median of
+   single calls) and the bounds at both; kernel and plain times and bounds
+   at D = 768 and 1024 at 64, 2048 and 16384 rows;
 3. kernel K2 (fused decoder update, Adam and SGD) against its plain versions
    at (B, D, F) = (64, 300, 1400), (64, 300, 1536), (512, 300, 1416) and the
    ragged (37, 300, 37) and (33, 300, 1401), with flag 1 and flag 0, each
@@ -124,13 +126,18 @@ Phases, in order; any failure raises and the exit code is not 0:
 18. ``mmtpu_torch.run --profile DIR`` in a fresh process: its trace names
    K1's kernels as often as the run launched them; ``make_configs`` writes
    the 512 configs of ``config.make_grid``.
+19. phase 5's e2e config through ``run_experiment(prep=...)`` on a synthetic
+   MOSI (1284/229/686 utterances, seq 20, vocab 3016, batch 64) whose word
+   embeddings, and so the latents, are 768 wide: K1 at that depth on the
+   main path, launched as in phase 5 (72 of each kind); held to the same
+   run on the CPU (final loss rtol 2e-4, post embeddings atol 2e-4).
 
 Phase 3 also holds K2 with the config axis (``K2_BATCHED_SHAPES``, per-config
 lr, bias corrections and flag, one config at flag 0) to its plain version and
 times it at the fused chunk's shape, beside 32 2-D calls, one per config slice
 of the same inputs, timed as one burst.  Phases 8-18 run inside the temporary
-directory of phases 4-6, before phase 7.  Around each path of phases 4-6 and
-8-18 the kernel launch counts are set to 0 just before and read just after
+directory of phases 4-6, before phase 7; phase 19 runs last.  Around each path
+of phases 4-6 and 8-19 the kernel launch counts are set to 0 just before and read just after
 (phases 12, 17 and 18 in the processes that run them).  The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -152,9 +159,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # (B, D, V, zero_row): the train batch, the inference batch, the alternating
 # fit's batch, a large batch, a ragged shape, and a zero latent row (exercises
-# the 1e-8 cosine clamp)
+# the 1e-8 cosine clamp); then depths above one depth chunk (384 floats),
+# where the forward streams both operands chunk by chunk and the backward
+# cuts the output depth into slices of at most 512 floats: one past 512, one
+# off the float4 boundary (the scalar load path), 768 and 1024 (two slices;
+# a 2048-row batch and a zero row among them) and 2048 (four slices)
 SHAPES = [(64, 300, 3016, False), (512, 300, 3016, False), (32, 300, 3016, False),
-          (2048, 300, 3016, False), (37, 300, 3001, False), (64, 300, 3016, True)]
+          (2048, 300, 3016, False), (37, 300, 3001, False), (64, 300, 3016, True),
+          (64, 513, 3016, False), (37, 767, 3001, False), (64, 768, 3016, False),
+          (2048, 1024, 3016, False), (64, 1024, 3016, True), (64, 2048, 3016, False)]
+# K1 timed at the widths of larger word-embedding tables, at the train batch,
+# a sweep chunk's train rows and its inference rows (burst lengths per rows)
+DEEP_DEPTHS, DEEP_ROWS = (768, 1024), {64: 100, 2048: 20, 16384: 5}
 FWD_SUM_REL, FWD_RTOL = 1e-5, 1e-5  # the TPU kernel's gate (bench.py) and tests
 GRAD_MAX_REL, GRAD_ATOL = 1e-3, 1e-5
 # (B, D, F) of K2: the train batch at the stacked MOSI head width (pos 2), the
@@ -217,6 +233,10 @@ ALT_LOSS_RTOL, ALT_LAT_ATOL = 2e-4, 2e-4
 # phase 16: SIF, posenc and nearest words, the card against the CPU (the CPU
 # tests' tolerance against mmtpu; nearest words by their cosines)
 OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
+# phase 19: the e2e run at a 768-wide word-embedding table (MOSI's geometry
+# otherwise), the card against the CPU at the whole-fit parity tolerances
+DEEP_E2E_D = 768
+DEEP_LOSS_RTOL, DEEP_EMB_ATOL = 2e-4, 2e-4
 
 
 def log(msg: str) -> None:
@@ -322,7 +342,7 @@ def _k1_times(torch, K, lat, voc, g, single_calls: bool = True, reps: int = 100)
     """Device ms per call of both kernels and both plain versions at one
     shape (queued bursts); with ``single_calls``, the median of single calls
     is printed too."""
-    b = lat.shape[0]
+    b, d = lat.shape
     vnorm = torch.linalg.vector_norm(voc, dim=-1)
     fns = {"fwd": lambda: K.angular_fwd(lat, voc, vnorm),
            "fwd_plain": lambda: K.angular_partition_ref(lat, voc),
@@ -333,23 +353,26 @@ def _k1_times(torch, K, lat, voc, g, single_calls: bool = True, reps: int = 100)
     if single_calls:
         printed.append(("one call", {k: _call_ms(torch, f) for k, f in fns.items()}))
     for kind, t in printed:
-        log(f"[k1] B={b} {kind} ms: fwd kernel {t['fwd']:.4f} plain {t['fwd_plain']:.4f}; "
+        log(f"[k1] B={b} D={d} {kind} ms: fwd kernel {t['fwd']:.4f} plain {t['fwd_plain']:.4f}; "
             f"bwd kernel {t['bwd']:.4f} plain {t['bwd_plain']:.4f}")
     return times
 
 
 def _k1_bounds(b: int, d: int = 300, v: int = 3016) -> dict:
-    """K1's bounds at ``b`` rows: each input read once, each output written once."""
+    """K1's bounds at ``b`` rows and depth ``d``: each input read once, each
+    output written once."""
     fwd_bytes = 4 * (b * d + v * d + v + b)
     bounds = {"fwd": bound_ms(2 * b * v * d, fwd_bytes),
               "bwd": bound_ms(4 * b * v * d, fwd_bytes + 4 * b * d)}
-    log(f"[k1] bound at B={b}: fwd {bounds['fwd'][0]:.5f} ms ({bounds['fwd'][1]}), "
+    log(f"[k1] bound at B={b} D={d}: fwd {bounds['fwd'][0]:.5f} ms ({bounds['fwd'][1]}), "
         f"bwd {bounds['bwd'][0]:.5f} ms ({bounds['bwd'][1]})")
     return bounds
 
 
 def check_kernels(torch, K, dev) -> dict:
-    """Phase 2: K1 forward/backward vs the plain versions; returns errors and times."""
+    """Phase 2: K1 forward/backward vs the plain versions; returns errors,
+    times and bounds at D = 300 (64 and 512 rows) and at ``DEEP_DEPTHS``
+    (``DEEP_ROWS``)."""
     gen = torch.Generator().manual_seed(0)
     fwd_err = bwd_err = 0.0
     for b, d, v, zero_row in SHAPES:
@@ -357,7 +380,14 @@ def check_kernels(torch, K, dev) -> dict:
         fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
     times = {b: _k1_times(torch, K, *_k1_case(torch, dev, gen, b, 300, 3016)) for b in (64, 512)}
     bounds = {b: _k1_bounds(b) for b in (64, 512)}
-    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": times, "bounds": bounds}
+    deep = {}
+    for d in DEEP_DEPTHS:
+        for b, reps in DEEP_ROWS.items():
+            case = _k1_case(torch, dev, gen, b, d, 3016)
+            deep[d, b] = {"times": _k1_times(torch, K, *case, single_calls=False, reps=reps),
+                          "bounds": _k1_bounds(b, d)}
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": times, "bounds": bounds,
+            "deep": deep}
 
 
 def _k2_case(torch, dev, gen, b, d, f):
@@ -2138,6 +2168,61 @@ def run_aux(tmp: str) -> dict:
             "wall_s": wall}
 
 
+def run_deep_e2e(torch, K, T, e2e: dict) -> dict:
+    """Phase 19: phase 5's e2e config through ``run_experiment(prep=...)`` on
+    a synthetic MOSI whose word embeddings are ``DEEP_E2E_D`` wide (1284 /
+    229 / 686 utterances, seq 20, vocab 3016, batch 64, cut in epochs only),
+    on the card and on the CPU: losses and post embeddings held to each other,
+    both finite, and K1 launched as often as in phase 5."""
+    import numpy as np
+
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
+    from mmtpu_torch.runner import run_experiment
+
+    cfg = ExperimentConfig.from_dict(dict(smoke_config(True), config_name="deep"))
+    prep = prepare_device_data(synthesize_dataset("mosi", embed_dim=DEEP_E2E_D),
+                               word_sim_metric=cfg.word_sim_metric,
+                               pos_embed_dim=cfg.pos_embed_dim, pos_mode="baked",
+                               pos_bug_parity=cfg.parity, suff_stats=not cfg.parity)
+    res, wall, emb = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            if dev == "cuda":
+                _reset_launches(K, T)
+            t0 = time.perf_counter()
+            res[dev] = run_experiment(cfg, out_root=os.path.join(tmp, dev), prep=prep,
+                                      verbose=False, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = _read_launches(K, T)
+            wall[dev] = time.perf_counter() - t0
+            emb[dev] = np.load(os.path.join(tmp, dev, "deep", f"config_{cfg.config_num}_run_0",
+                                            "post", "embed.npy"))
+    loss = {dev: float(r["final_train_loss"]) for dev, r in res.items()}
+    loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    emb_abs = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+    want = {k: e2e["launches"][k] for k in ("k1_fwd", "k1_bwd")}
+    got = {k: launches[k] for k in want}
+    log(f"[deep] e2e at D={DEEP_E2E_D}, card against CPU: final loss {loss['cuda']:.4f} rel "
+        f"{loss_rel:.3e}, post embeddings {emb['cuda'].shape} max abs {emb_abs:.3e}; K1 "
+        f"launches {got['k1_fwd']} / {got['k1_bwd']} (phase 5 at D=300: {want['k1_fwd']} / "
+        f"{want['k1_bwd']}); run_experiment wall s card {wall['cuda']:.3f}, CPU "
+        f"{wall['cpu']:.3f}")
+    n_utt = sum(x.shape[0] for x in prep.sif_init.values())
+    if emb["cuda"].shape != (n_utt, DEEP_E2E_D):
+        raise AssertionError(f"post/embed.npy has shape {emb['cuda'].shape}")
+    if not all(np.isfinite(loss[d]) and np.isfinite(emb[d]).all() for d in res):
+        raise AssertionError(f"non-finite loss or embeddings at D={DEEP_E2E_D}: {loss}")
+    if not (loss_rel < DEEP_LOSS_RTOL and emb_abs < DEEP_EMB_ATOL):
+        raise AssertionError(f"the D={DEEP_E2E_D} e2e run on the card disagrees with the CPU")
+    if got != want:
+        raise AssertionError(f"K1 launched {got} at D={DEEP_E2E_D}, phase 5 {want}")
+    return {"launches": launches, "loss_rel": loss_rel, "emb_abs": emb_abs,
+            "final_loss": loss["cuda"], "wall_s": wall}
+
+
 def check_small_agreement(torch) -> None:
     """Phase 7: small configs on the GPU (kernels) and on the CPU (plain
     versions) with the same draws must agree."""
@@ -2229,11 +2314,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.load()
     occupancy = {f"{kind} D={d}": getattr(lib, f"angular_{kind}_blocks_per_sm")(d)
-                 for kind in ("fwd", "bwd") for d in (300, 512)}
+                 for kind in ("fwd", "bwd") for d in (300, 512, 768, 1024, 2048)}
+    slices = {d: lib.angular_bwd_depth_slices(d) for d in (300, 512, 768, 1024, 2048)}
     k2_occupancy = {kind: lib.dec_update_blocks_per_sm(int(kind == "adam"))
                     for kind in ("adam", "sgd")}
     log(f"[build] kernel library built and loaded in {time.perf_counter() - t0:.2f} s; "
-        f"K1 resident blocks per SM: {occupancy}; K2 resident blocks per SM (D = 300 and "
+        f"K1 resident blocks per SM: {occupancy}; K1-bwd depth slices: {slices}; K2 resident blocks per SM (D = 300 and "
         f"any D): {k2_occupancy}")
 
     k1 = check_kernels(torch, K, dev)
@@ -2254,6 +2340,7 @@ def main() -> int:
         mesh = run_mesh(torch, K, T, tmp, non_e2e, e2e)
         aux = run_aux(tmp)
     check_small_agreement(torch)
+    deep_e2e = run_deep_e2e(torch, K, T, e2e)
 
     t, kb = k1["times"], k1["bounds"]
     st, sb = sweep["k1"]["times"], sweep["k1"]["bounds"]
@@ -2265,7 +2352,7 @@ def main() -> int:
                "sweep_cli": cli_sweep["launches"],
                "sweep_cli_resumed": cli_sweep["launches_resumed"],
                "serving": serving["launches"], "sweep_warm_chunk": warm["launches"],
-               "alternating": alternating["launches"]}
+               "alternating": alternating["launches"], "deep_e2e": deep_e2e["launches"]}
     k1_path = {"fwd": e2e["launches"]["k1_fwd"], "bwd": e2e["launches"]["k1_bwd"]}
     record = {"kernels": [
         {"name": f"K1-{kind} angular_partition", "route": "cuda", "source": source,
@@ -2285,7 +2372,11 @@ def main() -> int:
                            "cli_nccl_1x1": mesh["k1_launches_nccl"][f"k1_{kind}"]},
          "max_abs_err_mesh_shards": mesh[f"k1_{kind}_err"],
          "launches_profiled_run": aux["launches"][f"k1_{kind}"],
+         "launches_deep_e2e": deep_e2e["launches"][f"k1_{kind}"],
          "max_abs_err_sweep_rows": sweep["k1"][f"{kind}_err"],
+         **{f"{key}_d{d}_b{b}": val for (d, b), x in k1["deep"].items() for key, val in (
+             ("ms", x["times"][kind]), ("plain_ms", x["times"][f"{kind}_plain"]),
+             ("bound_ms", x["bounds"][kind][0]), ("bound_by", x["bounds"][kind][1]))},
          **{f"{key}_b{b}": val for b in st for key, val in (
              ("ms", st[b][kind]), ("plain_ms", st[b][f"{kind}_plain"]),
              ("bound_ms", sb[b][kind][0]), ("bound_by", sb[b][kind][1]))}}
@@ -2331,7 +2422,8 @@ def main() -> int:
                   "numeric_ops": ops,
                   "mesh": {k: mesh[k] for k in ("diffs", "vocab_checks", "seconds",
                                                 "finite_sweep_configs")},
-                  "aux": {k: aux[k] for k in ("trace_kernels", "trace_k1", "wall_s")}},
+                  "aux": {k: aux[k] for k in ("trace_kernels", "trace_k1", "wall_s")},
+                  "deep_e2e": {k: v for k, v in deep_e2e.items() if k != "launches"}},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -22,10 +22,17 @@
 //   their sums with two shuffle steps that each keep half the rows, so each
 //   lane ends with one row's four dot products.  The cosine, clip, acosf and
 //   vocabulary mask follow in registers, into the lane's running row sum.
-// - Two blocks per SM: BM = BV = 32 rows at full depth take about 77 KB of
-//   shared memory at D = 300, so one block's tile loads overlap the other's
-//   products.  At D = 512 (130 KB) the SM takes one block; the grid asks the
-//   runtime how many fit (angular_fwd_blocks_per_sm).
+// - Any depth, in chunks of at most DC = 96 float4s (angular_tile.cuh): the
+//   lane's dot tile and |l|^2 add up over the chunks, and only then come the
+//   cosine, the clip, acosf and the masked sum, in the TPU kernel's order.
+//   Where D fits one chunk (D <= 384, the main path's 300 among them) the
+//   latent tile stays resident for the whole vocabulary loop; above it each
+//   vocabulary sub-tile streams both operands chunk by chunk, which reads
+//   the latent tile once per sub-tile from L2.
+// - Two blocks per SM: BM = BV = 32 rows of one chunk take about 77 KB of
+//   shared memory at D = 300 and at most 100 KB at any depth, so one block's
+//   tile loads overlap the other's products; the grid asks the runtime how
+//   many fit (angular_fwd_blocks_per_sm).
 // - |l|^2 with 8 lanes per row and shuffles.
 // - The TPU carried each row's sum across sequential vocab grid steps; here
 //   blocks run in any order, so the vocabulary is split into chunks of whole
@@ -43,28 +50,6 @@
 
 namespace {
 
-// The four lanes ks = 0..3 of a tile each hold sums over their quarter of D
-// for 4 rows x 4 columns; add them so that lane ks ends with row ks's four
-// sums.  Each step keeps half the rows, so no array is indexed at run time.
-__device__ inline void reduce_scatter(const float (&acc)[4][4], int ks, float (&dots)[4]) {
-    const bool hi1 = ks & 2, hi0 = ks & 1;
-    float h[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            float send = hi1 ? acc[i][j] : acc[i + 2][j];
-            float keep = hi1 ? acc[i + 2][j] : acc[i][j];
-            h[i][j] = keep + __shfl_xor_sync(FULL, send, 2);
-        }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        float send = hi0 ? h[0][j] : h[1][j];
-        float keep = hi0 ? h[1][j] : h[0][j];
-        dots[j] = keep + __shfl_xor_sync(FULL, send, 1);
-    }
-}
-
 // grid (ceil(B / BM), n_chunks); chunk c covers vocab sub-tiles
 // [c * tiles_per_chunk, (c + 1) * tiles_per_chunk).  partial: (n_chunks, B);
 // tickets: one per row tile, all 0.  The last block of a row tile adds its
@@ -76,7 +61,7 @@ angular_fwd_kernel(const float* __restrict__ lat, const float* __restrict__ voca
                    int D, int tiles_per_chunk) {
     extern __shared__ float4 smem[];
     __shared__ bool last;
-    const int d4 = depth4(D), dp4 = stride4(D);
+    const int dp4 = stride4(D);
     float4* lat_s = smem;                                         // BM x dp4
     float4* voc_s = lat_s + BM * dp4;                             // BV x dp4
     float* lnsq_s = reinterpret_cast<float*>(voc_s + BV * dp4);   // BM
@@ -95,46 +80,13 @@ angular_fwd_kernel(const float* __restrict__ lat, const float* __restrict__ voca
     const int st0 = blockIdx.y * tiles_per_chunk;
     const int st1 = min(st0 + tiles_per_chunk, n_sub);
 
-    load_tile<BM>(lat_s, lat, b0, B, D, d4, dp4);
-    __syncthreads();
-    {  // |l|^2, 8 lanes per row
-        const int row = tid >> 3, p = tid & 7;
-        float s = 0.f;
-        for (int k = p; k < d4; k += 8) {
-            float4 x = lat_s[row * dp4 + k];
-            s = dot4(x, x, s);
-        }
-        s += __shfl_xor_sync(FULL, s, 1);
-        s += __shfl_xor_sync(FULL, s, 2);
-        s += __shfl_xor_sync(FULL, s, 4);
-        if (p == 0) lnsq_s[row] = s;
-    }
+    latent_norms(lat_s, lnsq_s, lat, b0, B, D);
 
     float rs = 0.f;  // sum over this lane's vocab columns for row r
     for (int st = st0; st < st1; ++st) {
         const int v0 = st * BV;
-        __syncthreads();  // previous sub-tile consumed
-        load_tile<BV>(voc_s, vocab, v0, V, D, d4, dp4);
-        if (tid < BV) vn_s[tid] = v0 + tid < V ? vnorm[v0 + tid] : 0.f;
-        __syncthreads();
-
-        float acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        for (int k = ks; k < d4; k += 4) {
-            float4 a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = lat_s[(4 * rg + i) * dp4 + k];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = voc_s[(4 * cg + j) * dp4 + k];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = dot4(a[i], b[j], acc[i][j]);
-        }
-        float dots[4];
+        float acc[4][4], dots[4];
+        tile_dots(acc, lat_s, voc_s, vn_s, lat, vocab, vnorm, b0, B, v0, V, D, rg, cg, ks);
         reduce_scatter(acc, ks, dots);
 
         const float ln = sqrtf(lnsq_s[r]);
@@ -194,14 +146,13 @@ cudaError_t configure(int D) {
 
 extern "C" {
 
-// K1's tile shape and depth bound, forward and backward alike
-int angular_max_depth() { return MAX_D; }
+// K1's tile shape, forward and backward alike
 int angular_row_tile() { return BM; }
 int angular_vocab_tile() { return BV; }
 
 // Resident blocks per SM of the main kernel at depth D (-1 on error).
 int angular_fwd_blocks_per_sm(int D) {
-    if (D < 1 || D > MAX_D || configure(D) != cudaSuccess) return -1;
+    if (D < 1 || configure(D) != cudaSuccess) return -1;
     int n = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, angular_fwd_kernel, THREADS,
                                                       fwd_smem_bytes(D)) != cudaSuccess)
@@ -214,7 +165,7 @@ int angular_fwd_blocks_per_sm(int D) {
 int angular_fwd(const void* lat, const void* vocab, const void* vnorm, void* partial,
                 void* tickets, void* out, int B, int V, int D, int n_chunks,
                 int tiles_per_chunk, void* stream) {
-    if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+    if (D < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = configure(D);
     if (err != cudaSuccess) return (int)err;

@@ -92,16 +92,17 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def fwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
-             blocks_per_sm: int) -> tuple:
+             blocks_per_sm: int, depth_slices: int = 1) -> tuple:
     """``(n_chunks, tiles_per_chunk)`` of the forward's grid, one block per
-    (row tile, vocabulary chunk of whole sub-tiles): as many chunks as one
-    wave of the card's ``blocks_per_sm * sm_count`` slots holds, and no more,
-    so each block loads its latent tile and writes its partials once for as
-    many sub-tiles as it can.  Where the row tiles alone fill the slots, one
-    chunk.  A chunk takes at least two sub-tiles wherever the blocks would
-    still cover every SM.  A function of its arguments only, so runs
-    reproduce."""
-    n_rt = -(-b // row_tile)
+    (row tile, depth slice, vocabulary chunk of whole sub-tiles): as many
+    chunks as one wave of the card's ``blocks_per_sm * sm_count`` slots
+    holds, and no more, so each block loads its latent tile and writes its
+    partials once for as many sub-tiles as it can.  Where the row tiles
+    (times the depth slices) alone fill the slots, one chunk.  A chunk takes
+    at least two sub-tiles wherever the blocks would still cover every SM.
+    The forward has one depth slice.  A function of its arguments only, so
+    runs reproduce."""
+    n_rt = -(-b // row_tile) * depth_slices
     n_sub = -(-v // vocab_tile)
     tpc = -(-n_sub // max(1, blocks_per_sm * sm_count // n_rt))
     if tpc == 1 and n_rt * -(-n_sub // 2) >= sm_count:
@@ -110,8 +111,10 @@ def fwd_grid(b: int, v: int, row_tile: int, vocab_tile: int, sm_count: int,
     return -(-n_sub // tpc), tpc
 
 
-# The backward's grid: the same rule, which gave the fastest of the measured
-# chunk sizes for both kernels at 64 and 512 rows (scripts/torch_k1_grid.py).
+# The backward's grid: the same rule over (row tile, depth slice) pairs
+# (``depth_slices`` from the library, one up to D = 512), which gave the
+# fastest of the measured chunk sizes for both kernels at 64 and 512 rows
+# (scripts/torch_k1_grid.py).
 bwd_grid = fwd_grid
 
 
@@ -128,8 +131,6 @@ def angular_fwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor)
 
     _check_cuda(latents, vocab, vnorm)
     lib = load()
-    if latents.shape[1] > lib.angular_max_depth():
-        raise ValueError(f"angular kernel takes depth <= {lib.angular_max_depth()}")
     b, d = latents.shape
     v = vocab.shape[0]
     out = torch.empty((b, 1), dtype=torch.float32, device=latents.device)
@@ -163,8 +164,6 @@ def angular_bwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor,
 
     _check_cuda(latents, vocab, vnorm, g)
     lib = load()
-    if latents.shape[1] > lib.angular_max_depth():
-        raise ValueError(f"angular kernel takes depth <= {lib.angular_max_depth()}")
     b, d = latents.shape
     v = vocab.shape[0]
     dlat = torch.empty((b, d), dtype=torch.float32, device=latents.device)
@@ -173,7 +172,8 @@ def angular_bwd(latents: torch.Tensor, vocab: torch.Tensor, vnorm: torch.Tensor,
     dev = latents.device
     chunks, tpc = bwd_grid(b, v, lib.angular_row_tile(), lib.angular_vocab_tile(),
                            sm_count(dev.index),
-                           blocks_per_sm("angular_bwd_blocks_per_sm", dev.index, d))
+                           blocks_per_sm("angular_bwd_blocks_per_sm", dev.index, d),
+                           lib.angular_bwd_depth_slices(d))
     # each vocabulary chunk's part of dl, rows padded to a multiple of 4 floats
     partial = torch.empty((chunks, b, -(-d // 4) * 4), dtype=torch.float32,
                           device=latents.device)

@@ -101,10 +101,11 @@ def load() -> ctypes.CDLL:
         lib.angular_fwd.restype = i
         lib.angular_bwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
         lib.angular_bwd.restype = i
-        for fn in ("angular_fwd_blocks_per_sm", "angular_bwd_blocks_per_sm"):
+        for fn in ("angular_fwd_blocks_per_sm", "angular_bwd_blocks_per_sm",
+                   "angular_bwd_depth_slices"):
             getattr(lib, fn).argtypes = [i]
             getattr(lib, fn).restype = i
-        for fn in ("angular_max_depth", "angular_row_tile", "angular_vocab_tile"):
+        for fn in ("angular_row_tile", "angular_vocab_tile"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
         lib.cuda_error_string.argtypes = [i]

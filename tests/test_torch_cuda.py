@@ -68,9 +68,45 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         K.angular_fwd(lat.T.contiguous().T, vocab, vn)
     with pytest.raises(ValueError, match="tensors on"):
         K.angular_fwd(lat, vocab.cpu(), vn)
-    with pytest.raises(ValueError, match="depth"):
-        K.angular_fwd(torch.randn(2, 600, device=cuda_device),
-                      torch.randn(3, 600, device=cuda_device), torch.ones(3, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,v,zero_row", [
+    (64, 513, 3016, False), (37, 767, 3001, False), (64, 768, 3016, False),
+    (2048, 768, 3016, False), (64, 1024, 3016, True), (33, 2048, 1000, False)])
+def test_deep_kernels_match_plain(cuda_device, b, d, v, zero_row):
+    """Both K1 kernels above the one-chunk depth, where the forward streams
+    both operands in depth chunks and the backward cuts the output depth into
+    slices: one chunk past 512 floats, a depth off the float4 boundary (the
+    scalar load path), the largest GloVe-like widths, a 2048-row batch, a
+    zero latent row, and 2048 (four slices).  chip_smoke.py's phase 2 gates:
+    forward sum rel < 1e-5 and element rtol 1e-5; gradient max-rel < 1e-3
+    against autograd of the plain version and atol 1e-5 against the explicit
+    formula (the zero row held to the max-rel limit only).  Each kernel
+    launches once per call, and two calls are bit for bit equal."""
+    gen = torch.Generator().manual_seed(d)
+    lat = torch.randn(b, d, generator=gen)
+    if zero_row:
+        lat[0] = 0.0
+    vocab = torch.randn(v, d, generator=gen)
+    vocab = vocab / torch.linalg.vector_norm(vocab, dim=-1, keepdim=True)
+    lat, vocab = lat.to(cuda_device), vocab.to(cuda_device)
+    g = torch.randn(b, 1, generator=gen).to(cuda_device)
+    vn = torch.linalg.vector_norm(vocab, dim=-1)
+    before = dict(K.LAUNCHES)
+    z, dl = K.angular_fwd(lat, vocab, vn), K.angular_bwd(lat, vocab, vn, g)
+    assert K.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    z_p = K.angular_partition_ref(lat, vocab)
+    assert abs(z.sum().item() - z_p.sum().item()) / abs(z_p.sum().item()) < 1e-5
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=0)
+    lat_a = lat.clone().requires_grad_()
+    (K.angular_partition_ref(lat_a, vocab) * g).sum().backward()
+    assert ((dl - lat_a.grad).abs().max() / lat_a.grad.abs().max()).item() < 1e-3
+    rows = slice(1, None) if zero_row else slice(None)
+    torch.testing.assert_close(dl[rows], K.angular_partition_bwd_ref(lat, vocab, vn, g)[rows],
+                               rtol=0, atol=1e-5)
+    assert torch.equal(z, K.angular_fwd(lat, vocab, vn))
+    assert torch.equal(dl, K.angular_bwd(lat, vocab, vn, g))
 
 
 @pytest.mark.cuda

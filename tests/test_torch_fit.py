@@ -23,8 +23,8 @@ from mmtpu_torch.train import latents as tl
 N, L, V, D, A, VIS = 13, 5, 25, 8, 4, 3
 
 
-def _data(rng, stats: bool) -> dict:
-    vocab = rng.standard_normal((V, D)).astype(np.float32)
+def _data(rng, stats: bool, d: int = D) -> dict:
+    vocab = rng.standard_normal((V, d)).astype(np.float32)
     ids = rng.integers(1, V, size=(N, L))
     ids[rng.random((N, L)) < 0.2] = 0
     vw = (rng.random(V) * 0.9 + 0.05).astype(np.float32)
@@ -44,7 +44,7 @@ def _data(rng, stats: bool) -> dict:
             d[f"{s}_s0"] = np.broadcast_to(m3, x.shape).sum(1).astype(np.float32)
             d[f"{s}_s1"] = (m3 * x).sum(1).astype(np.float32)
             d[f"{s}_s2"] = (m3 * x * x).sum(1).astype(np.float32)
-    init = rng.standard_normal((N, D)).astype(np.float32)
+    init = rng.standard_normal((N, vocab.shape[1])).astype(np.float32)
     return {"data": d, "vocab": vocab, "init": init}
 
 
@@ -59,7 +59,7 @@ def _jax_perms(key, n_epochs):
 
 def _run_both(inp, kind, norm, train_decoder, shuffle, bsz, n_epochs=3, n_epochs_max=3,
               lr=1e-2):
-    dec = init_decoder(jax.random.key(1), D, A, VIS, unimodal=False)
+    dec = init_decoder(jax.random.key(1), inp["vocab"].shape[1], A, VIS, unimodal=False)
     j_hp = {"lr": jnp.float32(lr), "word_loss_weight": jnp.float32(0.002),
             "opt_code": jnp.int32(OPT_CODES[kind]), "norm_code": jnp.int32(NORM_CODES[norm]),
             "n_epochs": jnp.int32(n_epochs)}
@@ -102,6 +102,18 @@ def test_inference_fit_matches_mmtpu(rng, kind):
     want, got = _run_both(_data(rng, stats=True), kind, "batch_norm", train_decoder=False,
                           shuffle=False, bsz=8)
     _assert_close(want, got, train_decoder=False)
+
+
+def test_train_fit_matches_mmtpu_above_depth_512(rng):
+    """The training fit at a latent depth above the kernels' former 512
+    limit (K1 takes any depth): nothing else in the fit assumes D <= 512.
+    SGD: Adam's first step moves a coordinate by lr x sign(g), so where a
+    gradient component of the 520-wide decoder is within rounding of zero
+    the two frameworks' float orders move it apart by up to lr."""
+    want, got = _run_both(_data(rng, stats=True, d=520), "sgd", "layer_norm",
+                          train_decoder=True, shuffle=True, bsz=5)
+    assert got[0].shape == (N, 520)
+    _assert_close(want, got, train_decoder=True)
 
 
 def test_raw_streams_fit_matches_mmtpu(rng):

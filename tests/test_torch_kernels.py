@@ -30,9 +30,11 @@ def _inputs(rng, b, d, v):
     return lat, vocab, g
 
 
-@pytest.mark.parametrize("b,d,v,tile", [(16, 36, 100, 32), (37, 12, 40, 16), (8, 20, 64, 16)])
+@pytest.mark.parametrize("b,d,v,tile", [(16, 36, 100, 32), (37, 12, 40, 16), (8, 20, 64, 16),
+                                        (16, 513, 64, 16), (8, 768, 40, 16)])
 def test_forward_matches_mmtpu(rng, b, d, v, tile):
-    """Includes vocab sizes that are not a multiple of the kernel's tile."""
+    """Includes vocab sizes that are not a multiple of the kernel's tile, and
+    depths above 512 (the CUDA kernels cut them into depth chunks)."""
     lat, vocab, _ = _inputs(rng, b, d, v)
     got = K.angular_fwd(torch.tensor(lat), torch.tensor(vocab),
                         torch.linalg.vector_norm(torch.tensor(vocab), dim=-1))
@@ -42,10 +44,12 @@ def test_forward_matches_mmtpu(rng, b, d, v, tile):
     np.testing.assert_allclose(got.numpy(), np.asarray(want_p), rtol=1e-5)
 
 
-@pytest.mark.parametrize("b,d,v,tile", [(6, 12, 40, 16), (37, 12, 40, 16)])
+@pytest.mark.parametrize("b,d,v,tile", [(6, 12, 40, 16), (37, 12, 40, 16), (16, 513, 64, 16),
+                                        (8, 768, 40, 16)])
 def test_backward_matches_mmtpu_vjp(rng, b, d, v, tile):
     """bwd_ref and autograd through AngularPartitionFn against JAX's VJP of
-    the Pallas kernel, with a non-uniform cotangent."""
+    the Pallas kernel, with a non-uniform cotangent; depths above 512 too
+    (the CUDA backward cuts them into depth slices)."""
     lat, vocab, g = _inputs(rng, b, d, v)
     want = jax.grad(lambda l: (angular_partition_pallas(l, jnp.asarray(vocab), tile)
                                * jnp.asarray(g)).sum())(jnp.asarray(lat))
@@ -89,22 +93,25 @@ def test_wrappers_reject_bad_shapes(rng):
         K.angular_fwd(lat.to("meta"), vocab.to("meta"), vn.to("meta"))
 
 
-def _check_grid(grid, b, v, blocks_per_sm, row_tile=32, vocab_tile=32):
+def _check_grid(grid, b, v, blocks_per_sm, row_tile=32, vocab_tile=32, slices=1):
     """A K1 grid at chip_smoke.py's shapes on a 132-SM card (or K2's, with D
-    tiles for row tiles and F sub-tiles for vocabulary sub-tiles): the chunks
-    cut the sub-tiles into whole, non-empty ranges that cover each sub-tile
-    exactly once; the blocks fit in one wave of the card's ``blocks_per_sm``
-    slots per SM (unless the row tiles alone overflow it) and fill more than
-    half of what the work allows, every SM where two blocks fit per SM and
-    there is enough work; and the grid depends on its arguments only (no
-    device is asked).  Returns ``(chunks, tiles per chunk)``."""
+    tiles for row tiles and F sub-tiles for vocabulary sub-tiles), with
+    ``slices`` depth slices (the backward's z axis): the chunks cut the
+    sub-tiles into whole, non-empty ranges that cover each (sub-tile, depth
+    slice) exactly once; the blocks fit in one wave of the card's
+    ``blocks_per_sm`` slots per SM (unless the row tiles times the slices
+    alone overflow it) and fill more than half of what the work allows,
+    every SM where two blocks fit per SM and there is enough work; and the
+    grid depends on its arguments only (no device is asked).  Returns
+    ``(chunks, tiles per chunk)``."""
     sm = 132
-    chunks, tpc = grid(b, v, row_tile, vocab_tile, sm, blocks_per_sm)
-    n_rt, n_sub = -(-b // row_tile), -(-v // vocab_tile)
-    covered = [st for c in range(chunks) for st in range(c * tpc, min((c + 1) * tpc, n_sub))]
-    assert sorted(covered) == list(range(n_sub))
+    chunks, tpc = grid(b, v, row_tile, vocab_tile, sm, blocks_per_sm, slices)
+    n_rt, n_sub = -(-b // row_tile) * slices, -(-v // vocab_tile)
+    covered = [(z, st) for z in range(slices) for c in range(chunks)
+               for st in range(c * tpc, min((c + 1) * tpc, n_sub))]
+    assert sorted(covered) == [(z, st) for z in range(slices) for st in range(n_sub)]
     assert all(c * tpc < n_sub for c in range(chunks))
-    assert grid(b, v, row_tile, vocab_tile, sm, blocks_per_sm) == (chunks, tpc)
+    assert grid(b, v, row_tile, vocab_tile, sm, blocks_per_sm, slices) == (chunks, tpc)
     assert n_rt * chunks <= max(blocks_per_sm * sm, n_rt)
     assert 2 * n_rt * chunks > min(n_rt * n_sub, blocks_per_sm * sm)
     if blocks_per_sm >= 2 and n_rt * n_sub >= sm:
@@ -112,11 +119,26 @@ def _check_grid(grid, b, v, blocks_per_sm, row_tile=32, vocab_tile=32):
     return chunks, tpc
 
 
+def _bwd_depth_slices(d):
+    """The backward's depth slices at depth ``d`` by ``angular_bwd.cu``'s rule
+    (``SLICE4`` float4s at most, near-equal), the constant read from the source."""
+    src = (Path(K.__file__).resolve().parent.parent / "csrc" / "angular_bwd.cu").read_text()
+    slice4 = int(re.search(r"constexpr int SLICE4 = (\d+);", src).group(1))
+    d4 = -(-d // 4)
+    width = -(-d4 // -(-d4 // slice4))
+    return -(-d4 // width)
+
+
 # blocks_per_sm 2 is the depth of the main path (D = 300), 1 is D = 512
 @pytest.mark.parametrize("blocks_per_sm", [2, 1])
 @pytest.mark.parametrize("b,v", [(64, 3016), (512, 3016), (2048, 3016), (37, 3001), (1, 20)])
 def test_bwd_grid_covers_every_sub_tile_once(b, v, blocks_per_sm):
-    _check_grid(K.bwd_grid, b, v, blocks_per_sm)
+    """At the main path's depth (one slice) and at depths the backward cuts
+    into two and four depth slices."""
+    depths = (300, 512, 513, 768, 1024, 2048)
+    assert [_bwd_depth_slices(d) for d in depths] == [1, 1, 2, 2, 2, 4]
+    for d in depths:
+        _check_grid(K.bwd_grid, b, v, blocks_per_sm, slices=_bwd_depth_slices(d))
 
 
 @pytest.mark.parametrize("blocks_per_sm", [2, 1])
