@@ -131,13 +131,35 @@ Phases, in order; any failure raises and the exit code is not 0:
    embeddings, and so the latents, are 768 wide: K1 at that depth on the
    main path, launched as in phase 5 (72 of each kind); held to the same
    run on the CPU (final loss rtol 2e-4, post embeddings atol 2e-4).
+20. the captured paths (``mmtpu_torch/graphs.py``: one CUDA graph per
+   epoch of a fit of ``graphs.MIN_EPOCHS`` epochs or more and per ladder
+   size of the server, the default on the card; the fits of the phases
+   above are shorter and run eagerly, phase 13's servers captured)
+   against eager (``graphs=False``), in turns in one process (eager,
+   captured, captured, eager): phase 4's training fit and phase 5's e2e fit
+   (``GRAPH_EPOCHS`` epochs), phase 10's chunk dense and fused
+   (``GRAPH_SWEEP_EPOCHS`` epochs) and phase 13's server; each pair held to
+   the whole-fit gates (loss rtol 2e-4, embeddings atol 2e-4), the chunks
+   to phase 11's rule, the server to ``SERVE_ATOL``, with their
+   bit-equality reported; s per steady epoch, utt/s (config·utt·epochs/s
+   for the chunks), capture seconds, peak memory, K1 / K2 launches (equal
+   in every turn) and request ms at 3, 64, 686 and 1500 rows; the chunk's
+   and one config's inference fits eager against captured at the grid's
+   100 and 200 epochs and at caps on either side of ``MIN_EPOCHS``
+   (``GRAPH_BREAK_EVEN``); then, in a fresh process under
+   ``torch.profiler`` (``--graphs-worker``), each path's host kernel and
+   graph launches per step and the device's idle share over one steady
+   epoch (8 requests), and K1's and K2's kernels named in the trace inside
+   every epoch, replays included, against the launch counters (which a
+   replay adds to by its capture's launches): any difference fails.
 
 Phase 3 also holds K2 with the config axis (``K2_BATCHED_SHAPES``, per-config
 lr, bias corrections and flag, one config at flag 0) to its plain version and
 times it at the fused chunk's shape, beside 32 2-D calls, one per config slice
 of the same inputs, timed as one burst.  Phases 8-18 run inside the temporary
-directory of phases 4-6, before phase 7; phase 19 runs last.  Around each path
-of phases 4-6 and 8-19 the kernel launch counts are set to 0 just before and read just after
+directory of phases 4-6, before phase 7, and phase 20 after phase 18 in
+it; phase 19 runs last.  Around each path
+of phases 4-6 and 8-20 the kernel launch counts are set to 0 just before and read just after
 (phases 12, 17 and 18 in the processes that run them).  The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -561,6 +583,13 @@ def check_k2(torch, T, dev) -> dict:
     return {"err": err, "times": times, "bounds": bounds}
 
 
+# idle seconds before each traced range: the trace places a device event by
+# its start on the host's clock, and the device clock's offset from it (a
+# kernel launched just after one range ended was seen inside it) must stay
+# below the gap between ranges
+TRACE_GAP_S = 0.005
+
+
 def _k2_device_kernels(torch, fns: dict) -> dict:
     """The CUDA kernels that one call of each of ``fns`` issues, as
     torch.profiler's device events count them.  All calls go through one
@@ -575,6 +604,7 @@ def _k2_device_kernels(torch, fns: dict) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for kind, fn in fns.items():
+            time.sleep(TRACE_GAP_S)
             with record_function(f"k2_call_{kind}"):
                 fn()
                 torch.cuda.synchronize()
@@ -2288,11 +2318,615 @@ def check_small_agreement(torch) -> None:
             raise AssertionError(f"GPU and CPU fused e2e fits disagree ({opt}/{norm})")
 
 
+# phase 20: the captured paths (CUDA graphs, mmtpu_torch/graphs.py; the
+# default on the card for a fit of graphs.MIN_EPOCHS epochs or more) against
+# eager (graphs=False), in turns in one process: eager, captured, captured,
+# eager.  The fits and the chunks run GRAPH_EPOCHS epochs (phase 4's, 5's and
+# 10's configs cut in depth only, to the fewest epochs that the default
+# captures).  The fits at the whole-fit gates (loss rtol, embeddings atol),
+# the chunks at phase 11's rule, the server at phase 13's SERVE_ATOL; each
+# pair also reports whether it is bit-equal.
+GRAPH_EPOCHS = GRAPH_SWEEP_EPOCHS = 20
+# the sweep's inference fits eager against captured by epoch count, for
+# graphs.MIN_EPOCHS: (label, "chunk" (the K = 32 dense chunk's) or "alone"
+# (one config's), the chunk's n_epochs, infer_epochs_cap); the grid's 100 and
+# 200 epochs, and caps below and at the threshold
+GRAPH_BREAK_EVEN = (("chunk_e100", "chunk", 100, 0), ("chunk_e200", "chunk", 200, 0),
+                    ("chunk_cap10", "chunk", 100, 10), ("chunk_cap20", "chunk", 200, 20),
+                    ("alone_e100", "alone", 100, 0), ("alone_cap5", "alone", 100, 5))
+GRAPH_LOSS_RTOL, GRAPH_EMB_ATOL = 2e-4, 2e-4
+GRAPH_TURNS = (False, True, True, False)
+# the device kernels of K1 and K2 by name in a torch.profiler trace (CUPTI
+# names the kernels that a graph replay runs as it names launched ones);
+# K2's Adam and SGD instances share a name stem and are counted together
+GRAPH_TRACED_KERNELS = {"k1_fwd": "angular_fwd_kernel", "k1_bwd": "angular_bwd_kernel",
+                        "k2": "dec_update_kernel"}
+
+
+class _GraphProbe:
+    """Phase 20's view of :class:`mmtpu_torch.graphs.Graphs`: every
+    instance made while it is entered, and every call of one, synced before
+    and after and timed on the host clock (one call is one epoch of a fit or
+    one request), with the kernel launch counters' change over the call and
+    the replays it made; with ``ranges`` each call is also a
+    ``record_function`` range named ``<tag>|<instance index>|<key>|<call
+    index>``.  ``calls`` holds ``(graphs, key, seconds, launches, replays,
+    range name)``."""
+
+    def __init__(self, torch, tag: str = "", ranges: bool = False):
+        self.torch, self.tag, self.ranges = torch, tag, ranges
+        self.made, self.calls = [], []
+
+    def __enter__(self):
+        from mmtpu_torch import graphs as G
+
+        import mmtpu_torch.kernels.angular as K
+        import mmtpu_torch.kernels.decoder_update as T
+
+        torch, probe = self.torch, self
+        init, call = self._saved = (G.Graphs.__init__, G.Graphs.__call__)
+
+        def made(g, *args, **kw):
+            init(g, *args, **kw)
+            probe.made.append(g)
+
+        def timed(g, key, body, *args, **kw):
+            n = sum(1 for c in probe.calls if c[0] is g)
+            name = f"{probe.tag}|{probe.made.index(g)}|{key}|{n}"
+            torch.cuda.synchronize()
+            launched, replays = _read_launches(K, T), g.replays
+            if probe.ranges:
+                time.sleep(TRACE_GAP_S)
+            t0 = time.perf_counter()
+            if probe.ranges:
+                with torch.profiler.record_function(name):
+                    out = call(g, key, body, *args, **kw)
+                    torch.cuda.synchronize()
+            else:
+                out = call(g, key, body, *args, **kw)
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = {k: v - launched[k] for k, v in _read_launches(K, T).items()}
+            probe.calls.append((g, key, secs, launched, g.replays - replays, name))
+            return out
+
+        G.Graphs.__init__, G.Graphs.__call__ = made, timed
+        return self
+
+    def __exit__(self, *exc):
+        from mmtpu_torch import graphs as G
+
+        G.Graphs.__init__, G.Graphs.__call__ = self._saved
+
+    def epochs(self, g=None) -> list:
+        """The seconds of each call of ``g`` (the first instance made)."""
+        g = g if g is not None else self.made[0]
+        return [c[2] for c in self.calls if c[0] is g]
+
+
+def _graph_inputs(torch, tmp: str, dev) -> dict:
+    """Phase 20's fit paths, ``path -> run(graphs) -> (embeddings, losses)``:
+    phase 4's training fit and phase 5's e2e fit, cut to GRAPH_EPOCHS."""
+    from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
+    from mmtpu_torch.train.latents import fit_latents
+
+    data_dir = os.path.join(tmp, "data")
+    emb0, dec, data, vocab, hp, spec, perms = _latent_inputs(
+        torch, dict(smoke_config(False), n_epochs=GRAPH_EPOCHS), data_dir, dev)
+    e2e_cfg = dict(smoke_config(True), n_epochs=GRAPH_EPOCHS)
+    x = _e2e_inputs(torch, e2e_cfg, data_dir, dev, e2e_cfg["optimizer"])
+    espec = E2EFitSpec(n_epochs_max=GRAPH_EPOCHS, batch_size=64, unimodal=False,
+                       opt_kind=e2e_cfg["optimizer"])
+
+    def train_fit(graphs):
+        out = fit_latents(emb0, dec, data, vocab, hp, spec, perms=perms, graphs=graphs)
+        return out[0], out[2]
+
+    def e2e_fit(graphs):
+        out = fit_e2e(*x[:7], espec, perms=x[7], graphs=graphs)
+        return out[0], out[3]
+
+    return {"train_fit": train_fit, "e2e_fit": e2e_fit}
+
+
+def _graph_chunks(torch, tmp: str, dev) -> dict:
+    """Phase 20's chunk paths: phase 10's configs cut to GRAPH_SWEEP_EPOCHS,
+    ``run(graphs) -> SweepResult``, dense and fused."""
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.sweep.runner import run_chunk
+
+    configs = [dict(c, n_epochs=GRAPH_SWEEP_EPOCHS) for c in sweep_configs()]
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")),
+                               pos_mode="shared", pos_dims=dims)
+    return {f"chunk_{'fused' if fused else 'dense'}": (
+        lambda graphs, fused=fused: run_chunk(configs, prep, batch_size=64, device=dev,
+                                              return_embeddings=True, fused_dec_update=fused,
+                                              graphs=graphs)) for fused in (False, True)}, configs
+
+
+def _turn(torch, K, T, dev, fn, graphs):
+    """One run of ``fn(graphs)``: its result, launches, seconds, peak memory
+    and the Graphs calls it made."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches(K, T)
+    with _GraphProbe(torch) as probe:
+        t0 = time.perf_counter()
+        out = fn(graphs)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+    return {"out": out, "launches": _read_launches(K, T), "s": secs, "probe": probe,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def _steady(times: list, captured: bool) -> float:
+    """Seconds per steady epoch: the median past the first epoch (eager) or
+    past the warm-up and capture epochs (captured)."""
+    return statistics.median(times[2:] if captured else times[1:])
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(np.asarray(x), np.asarray(y), equal_nan=True)
+               for x, y in zip(a, b))
+
+
+def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
+    """Phase 20: the training fit, the e2e fit, the K = 32 chunk (dense and
+    fused) and the server, eager against captured in turns; then their
+    host launches per step and device idle share under ``torch.profiler``
+    in a fresh process (``--graphs-worker``)."""
+    import numpy as np
+
+    from mmtpu_torch import graphs as G
+
+    if GRAPH_EPOCHS < G.MIN_EPOCHS or GRAPH_SWEEP_EPOCHS < G.MIN_EPOCHS:
+        raise AssertionError(f"phase 20's fits would not capture below {G.MIN_EPOCHS} epochs")
+    dev = torch.device("cuda", 0)
+    out = {}
+    for path, fn in _graph_inputs(torch, tmp, dev).items():
+        turns = [_turn(torch, K, T, dev, fn, g) for g in GRAPH_TURNS]
+        eager, captured = [turns[0], turns[3]], [turns[1], turns[2]]
+        diffs = [((c["out"][1] - e["out"][1]).abs() / e["out"][1].abs()).max().item()
+                 for c in captured for e in eager]
+        emb = [(c["out"][0] - e["out"][0]).abs().max().item() for c in captured for e in eager]
+        bit_equal = all(_same([x.cpu() for x in c["out"]], [x.cpu() for x in e["out"]])
+                        for c in captured for e in eager)
+        steps = GRAPH_EPOCHS * STEPS_PER_EPOCH
+        s_epoch = {m: [_steady(t["probe"].epochs(), m == "captured") for t in ts]
+                   for m, ts in (("eager", eager), ("captured", captured))}
+        rec = {"s_per_epoch": s_epoch,
+               "utt_s": {m: [1284 / s for s in v] for m, v in s_epoch.items()},
+               "first_epochs_s": [t["probe"].epochs()[:2] for t in captured],
+               "capture_s": [t["probe"].made[0].capture_s for t in captured],
+               "peak_gib": {m: [t["peak_gib"] for t in ts]
+                            for m, ts in (("eager", eager), ("captured", captured))},
+               "launches": [t["launches"] for t in turns], "loss_rel": max(diffs),
+               "emb_abs": max(emb), "bit_equal": bit_equal}
+        log(f"[graphs] {path}, eager / captured in turns ({GRAPH_EPOCHS} epochs): s per "
+            f"steady epoch eager {[round(s, 5) for s in s_epoch['eager']]} captured "
+            f"{[round(s, 5) for s in s_epoch['captured']]}; utt/s eager "
+            f"{[round(u, 1) for u in rec['utt_s']['eager']]} captured "
+            f"{[round(u, 1) for u in rec['utt_s']['captured']]}; captured first two epochs "
+            f"(warm-up, capture + replay) {[[round(s, 4) for s in f] for f in rec['first_epochs_s']]} s, "
+            f"capture {[round(s, 4) for s in rec['capture_s']]} s; peak GiB {rec['peak_gib']}; "
+            f"launches {rec['launches']}; captured against eager: loss max rel "
+            f"{rec['loss_rel']:.3e}, embeddings max abs {rec['emb_abs']:.3e}, bit-equal "
+            f"{bit_equal}")
+        if any(t["launches"] != turns[0]["launches"] for t in turns) or min(
+                turns[0]["launches"]["k1_fwd"], turns[0]["launches"]["k1_bwd"]) != steps:
+            raise AssertionError(f"{path}: launches {rec['launches']}, expected {steps} of K1 "
+                                 f"each in every turn")
+        if not (rec["loss_rel"] < GRAPH_LOSS_RTOL and rec["emb_abs"] < GRAPH_EMB_ATOL):
+            raise AssertionError(f"{path}: the captured fit disagrees with the eager one")
+        out[path] = rec
+
+    chunks, configs = _graph_chunks(torch, tmp, dev)
+    n_train, k = 1284, len(configs)
+    for path, fn in chunks.items():
+        turns = [_turn(torch, K, T, dev, fn, g) for g in GRAPH_TURNS]
+        eager, captured = [turns[0], turns[3]], [turns[1], turns[2]]
+        worst = {"loss_rel": 0.0, "pred_abs": 0.0, "emb_abs": 0.0}
+        bad, bit_equal = [], True
+        for c in captured:
+            for e in eager:
+                got, want = c["out"], e["out"]
+                ok = ~want.diverged
+                if not np.array_equal(got.diverged, want.diverged) or not ok.any():
+                    raise AssertionError(f"{path}: diverged configs differ or all diverged")
+                worst["loss_rel"] = max(worst["loss_rel"], float(np.max(
+                    np.abs(got.final_train_loss[ok] - want.final_train_loss[ok])
+                    / np.abs(want.final_train_loss[ok]))))
+                worst["pred_abs"] = max(worst["pred_abs"], float(
+                    np.abs(got.predictions[ok] - want.predictions[ok]).max()))
+                bit_equal &= _same([got.final_train_loss, got.predictions]
+                                   + [got.embeddings[s] for s in ("train", "valid", "test")],
+                                   [want.final_train_loss, want.predictions]
+                                   + [want.embeddings[s] for s in ("train", "valid", "test")])
+                for i in np.nonzero(ok)[0]:  # phase 11's per-config rule (Adam)
+                    d = np.concatenate([np.abs(got.embeddings[s][i] - want.embeddings[s][i])
+                                        for s in ("train", "valid", "test")])
+                    worst["emb_abs"] = max(worst["emb_abs"], float(d.max()))
+                    if ((d > SWEEP_ATOL).sum() > ADAM_EMB_OVER_SHARE * d.size
+                            or d.max() > ADAM_EMB_MAX_LR * configs[i]["lr"]):
+                        bad.append(int(configs[i]["config_num"]))
+        s_epoch = {m: [_steady(t["probe"].epochs(), m == "captured") for t in ts]
+                   for m, ts in (("eager", eager), ("captured", captured))}
+        steps = -(-n_train // 64)
+        rec = {"s_per_epoch": s_epoch, "ms_per_step": {
+                   m: [1e3 * s / steps for s in v] for m, v in s_epoch.items()},
+               "rate": {m: [k * n_train / s for s in v] for m, v in s_epoch.items()},
+               "phase_s": [t["out"].phase_s for t in turns],
+               "capture_s": [sum(g.capture_s for g in t["probe"].made) for t in captured],
+               "peak_gib": {m: [t["peak_gib"] for t in ts]
+                            for m, ts in (("eager", eager), ("captured", captured))},
+               "launches": [t["launches"] for t in turns], "bit_equal": bit_equal, **worst}
+        log(f"[graphs] {path} ({k} configs, {GRAPH_SWEEP_EPOCHS} epochs), eager / captured in "
+            f"turns: train ms per steady step eager "
+            f"{[round(x, 3) for x in rec['ms_per_step']['eager']]} captured "
+            f"{[round(x, 3) for x in rec['ms_per_step']['captured']]}; config-utterance-epochs/s "
+            f"eager {[round(r, 1) for r in rec['rate']['eager']]} captured "
+            f"{[round(r, 1) for r in rec['rate']['captured']]}; phases s "
+            f"{[{p: round(v, 3) for p, v in ps.items()} for ps in rec['phase_s']]}; capture "
+            f"(all the chunk's graphs) {[round(s, 3) for s in rec['capture_s']]} s; peak GiB "
+            f"{rec['peak_gib']}; launches {rec['launches'][0]} in every turn: "
+            f"{all(t['launches'] == turns[0]['launches'] for t in turns)}; captured against "
+            f"eager: final loss max rel {worst['loss_rel']:.3e}, predictions max abs "
+            f"{worst['pred_abs']:.3e}, embeddings max abs {worst['emb_abs']:.3e}, bit-equal "
+            f"{bit_equal}")
+        if any(t["launches"] != turns[0]["launches"] for t in turns):
+            raise AssertionError(f"{path}: launches differ between turns: {rec['launches']}")
+        if not (worst["loss_rel"] < SWEEP_RTOL and worst["pred_abs"] < FUSED_PRED_ATOL) or bad:
+            raise AssertionError(f"{path}: the captured chunk disagrees with the eager one "
+                                 f"(embeddings outside phase 11's rule in configs {bad})")
+        out[path] = rec
+
+    out["break_even"] = _graph_break_even(torch, tmp, dev)
+    out["server"] = _graph_server(torch, K, T, tmp, e2e, dev)
+    traced = _graph_trace(torch, tmp, e2e)
+    out["profiled"], out["trace_placement"] = traced["paths"], traced["placement"]
+    log(f"[graphs] traced K1 / K2 kernels placed by their launch call's host time "
+        f"{traced['placement']['by_launch']}, by their own start "
+        f"{traced['placement']['by_own_start']}; named in the whole trace "
+        f"{traced['placement']['in_trace']}")
+    for path, t in out["profiled"].items():
+        log(f"[graphs] {path}, traced (torch.profiler, one steady epoch or 8 requests): " + "; ".join(
+            f"{m} host launches per step: kernels {v['kernel_launches_per_step']:.2f}, graphs "
+            f"{v['graph_launches_per_step']:.3f}, copies and sets {v['copies_per_step']:.2f}; "
+            f"device events {v['device_events']}, busy {v['busy_ms']:.3f} of {v['wall_ms']:.3f} ms"
+            f", idle {100 * v['idle_share']:.1f} %" for m, v in t.items()))
+        for m, v in t.items():
+            c = v.get("launch_check")
+            if c is None:  # the server runs no K1 or K2
+                continue
+            log(f"[graphs] {path}, {m}, K1 / K2 in the trace against the counters over "
+                f"{c['calls']} Graphs calls ({c['replays']} replays): traced {c['traced']}, "
+                f"counted {c['counted']}, traced inside replays {c['replay_traced']}; "
+                f"calls that differ: {len(c['mismatched'])}")
+            if c["mismatched"] or c["traced"]["k1_fwd"] == 0 or (m == "captured") != bool(
+                    c["replays"]) or (c["replays"] and c["replay_traced"]["k1_fwd"] == 0):
+                raise AssertionError(f"{path} ({m}): the K1 / K2 kernels in the trace differ from "
+                                     f"the launch counters: {c['mismatched'][:3]}")
+    return out
+
+
+def _infer_calls(torch, run) -> dict:
+    """``run()`` (a chunk or a config alone, eagerly) with the sweep's
+    ``build_sweep_parts`` watched: the arguments it took and those of each
+    ``infer`` call (valid, then test)."""
+    from mmtpu_torch.sweep import runner
+
+    real, rec = runner.build_sweep_parts, {"calls": []}
+
+    def watched(*args):
+        rec["args"] = args[:5]
+        parts = real(*args)
+        infer = parts["infer"]
+        parts["infer"] = lambda *a: rec["calls"].append(a) or infer(*a)
+        return parts
+
+    runner.build_sweep_parts = watched
+    try:
+        run()
+    finally:
+        runner.build_sweep_parts = real
+    return rec
+
+
+def _graph_break_even(torch, tmp: str, dev) -> dict:
+    """Phase 20's break-even of graphs.MIN_EPOCHS: the valid and test
+    inference fits of phase 10's dense chunk and of one of its configs alone,
+    with the trained decoder of a one-epoch run, at GRAPH_BREAK_EVEN's epoch
+    counts and caps; eager against captured in turns (eager, captured,
+    captured, eager; a pair where a fit runs 100 epochs or more), captured
+    forced below the threshold.  Per case: which mode the default picks,
+    seconds per fit, and the captured embeddings against the eager ones."""
+    import dataclasses
+
+    from mmtpu_torch import graphs as G
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.sweep import runner
+
+    configs = [dict(c, n_epochs=1) for c in sweep_configs()]
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")),
+                               pos_mode="shared", pos_dims=dims)
+    recs = {"chunk": _infer_calls(torch, lambda: runner.run_chunk(
+                configs, prep, batch_size=64, device=dev, graphs=False)),
+            "alone": _infer_calls(torch, lambda: runner.run_config_alone(
+                configs[0], prep, batch_size=64, device=dev, graphs=False))}
+    out, threshold = {}, G.MIN_EPOCHS
+    for label, kind, n_epochs, cap in GRAPH_BREAK_EVEN:
+        statics, *rest = recs[kind]["args"]
+        statics = dataclasses.replace(statics, n_epochs_max=n_epochs, infer_epochs_cap=cap)
+        fit_epochs = min(n_epochs, cap) if cap else n_epochs
+        rec = {"fit_epochs": fit_epochs, "default": "captured" if fit_epochs >= threshold
+               else "eager", "eager_s": {}, "captured_s": {}, "capture_s": {}}
+        worst = 0.0
+        turns = GRAPH_TURNS if fit_epochs < 100 else GRAPH_TURNS[:2]
+        for g in turns:
+            G.MIN_EPOCHS = 0  # both modes at any epoch count
+            try:
+                parts = runner.build_sweep_parts(statics, *rest, graphs=g)
+                for split, (init, dec, hp, data) in zip(("valid", "test"), recs[kind]["calls"]):
+                    n = hp["n_epochs"]
+                    hp = dict(hp, n_epochs=torch.full_like(n, n_epochs)
+                              if isinstance(n, torch.Tensor) else n_epochs)
+                    torch.cuda.synchronize()
+                    with _GraphProbe(torch) as probe:
+                        t0 = time.perf_counter()
+                        emb = parts["infer"](init, dec, hp, data)
+                        torch.cuda.synchronize()
+                        secs = time.perf_counter() - t0
+                    mode = "captured" if g else "eager"
+                    rec[f"{mode}_s"].setdefault(split, []).append(secs)
+                    if g:
+                        rec["capture_s"].setdefault(split, []).append(probe.made[0].capture_s)
+                        worst = max(worst, (emb - rec[split]).abs().max().item())
+                    else:
+                        rec[split] = emb
+            finally:
+                G.MIN_EPOCHS = threshold
+        for split in ("valid", "test"):
+            rec.pop(split)
+        rec["emb_abs"] = worst
+        log(f"[graphs] break-even {label} ({kind}, {fit_epochs} epochs per inference fit, the "
+            f"default {rec['default']}): s per fit, eager / captured in turns: " + "; ".join(
+                f"{split} {[round(x, 4) for x in rec['eager_s'][split]]} / "
+                f"{[round(x, 4) for x in rec['captured_s'][split]]} (capture "
+                f"{[round(x, 4) for x in rec['capture_s'][split]]})" for split in ("valid", "test"))
+            + f"; captured against eager embeddings max abs {worst:.3e}")
+        if not worst < GRAPH_EMB_ATOL:
+            raise AssertionError(f"break-even {label}: the captured inference fits disagree")
+        out[label] = rec
+    return out
+
+
+def _graph_server(torch, K, T, tmp: str, e2e: dict, dev) -> dict:
+    """Phase 20's server: phase 13's ladder and requests, eager against
+    captured in turns per size and form, and their answers."""
+    import numpy as np
+
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.runner import prepare
+    from mmtpu_torch.serve import ClosedFormServer, stats_request
+
+    _, dec, senti = e2e["train_fit"][:3]
+    prep = prepare(ExperimentConfig.from_dict(smoke_config(True)), os.path.join(tmp, "data"))
+    keys = ("text_ids", "text_weights", "text_gauss", "audio", "visual")
+    test = {k: prep.splits["test"][k] for k in keys}
+    big = {k: np.concatenate([prep.splits["train"][k], prep.splits["valid"][k]])[:SERVE_BIG]
+           for k in keys}
+    reqs = {3: {k: v[:3] for k, v in test.items()}, 64: {k: v[:64] for k, v in test.items()},
+            686: test, SERVE_BIG: big}
+    servers = {}
+    for g in (False, True):
+        servers[g] = ClosedFormServer(dec, batch_sizes=SERVE_LADDER, sentiment_params=senti,
+                                      word_embeddings=prep.vocab_embeddings, device=dev,
+                                      graphs=g)
+        t0 = time.perf_counter()
+        servers[g].warmup({k: v[:2] for k, v in test.items()})
+        torch.cuda.synchronize()
+        servers[g].warmup_s = time.perf_counter() - t0
+    latency, worst, bit_equal = {}, 0.0, True
+    _reset_launches(K, T)
+    for n, r in reqs.items():
+        sr = stats_request(r)
+        forms = {"device_raw": _on_device(torch, r, dev),
+                 "device_stats": _on_device(torch, sr, dev), "host_raw": r, "host_stats": sr}
+        latency[n] = {}
+        for name, f in forms.items():
+            ms = {g: [] for g in (False, True)}
+            for g in GRAPH_TURNS:
+                ms[g].append(_host_ms(torch, lambda f=f, g=g: servers[g](f)))
+            latency[n][name] = {"eager": ms[False], "captured": ms[True]}
+            got, want = servers[True](f), servers[False](f)
+            worst = max(worst, *(float(np.abs(a - b).max()) for a, b in zip(got, want)))
+            bit_equal &= _same(got, want)
+        log(f"[graphs] server {n} rows: median of 8 ms, eager / captured in turns: " + ", ".join(
+            f"{name} {[round(x, 3) for x in v['eager']]} / {[round(x, 3) for x in v['captured']]}"
+            for name, v in latency[n].items()))
+    graphs = servers[True]._graphs
+    log(f"[graphs] server: warm-up s eager {servers[False].warmup_s:.3f} captured "
+        f"{servers[True].warmup_s:.3f} (capture {graphs.capture_s:.3f} s, {graphs.captures} "
+        f"graphs); captured against eager answers max abs {worst:.3e} (limit {SERVE_ATOL}), "
+        f"bit-equal {bit_equal}")
+    launches = _read_launches(K, T)
+    if worst > SERVE_ATOL or any(launches.values()) or not graphs.replays:
+        raise AssertionError(f"the captured server disagrees with the eager one, or launched "
+                             f"{launches}")
+    return {"latency_ms": latency, "max_abs": worst, "bit_equal": bit_equal,
+            "capture_s": graphs.capture_s, "graphs": graphs.captures,
+            "warmup_s": {"eager": servers[False].warmup_s, "captured": servers[True].warmup_s}}
+
+
+def _graph_trace(torch, tmp: str, e2e: dict) -> dict:
+    """Runs this script with ``--graphs-worker TMP`` (a fresh process: a
+    process's second profiler session records no device event); its result."""
+    from mmtpu_torch.tree import tree_map
+
+    _, dec, senti = e2e["train_fit"][:3]
+    torch.save({"dec": tree_map(lambda t: t.detach().cpu(), dec),
+                "senti": tree_map(lambda t: t.detach().cpu(), senti)},
+               os.path.join(tmp, "graphs_server.pt"))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--graphs-worker", tmp],
+                          cwd=tmp, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                          text=True, timeout=WORKER_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the graphs worker exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def graphs_worker(argv: list) -> int:
+    """Phase 20's traced runs (``chip_smoke.py --graphs-worker TMP``): each fit
+    and chunk path eager and captured (3 epochs: the last is a steady replay)
+    and 8 686-row device-resident requests of each form, in one
+    ``torch.profiler`` session; per path and mode, the steady epoch's (or
+    the requests') host kernel and graph launches per step, device events,
+    busy time and idle share.  Prints one JSON line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sys.path.insert(0, ROOT)
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.runner import prepare
+    from mmtpu_torch.serve import ClosedFormServer, stats_request
+
+    (tmp,) = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    # 3 epochs, the last a steady replay (one is the same at any epoch
+    # count), with the threshold lowered so that the fits capture
+    from mmtpu_torch import graphs as G
+
+    global GRAPH_EPOCHS, GRAPH_SWEEP_EPOCHS
+    GRAPH_EPOCHS = GRAPH_SWEEP_EPOCHS = G.MIN_EPOCHS = 3
+    paths = _graph_inputs(torch, tmp, dev)
+    paths.update(_graph_chunks(torch, tmp, dev)[0])
+    p = torch.load(os.path.join(tmp, "graphs_server.pt"), weights_only=False)
+    prep = prepare(ExperimentConfig.from_dict(smoke_config(True)), os.path.join(tmp, "data"))
+    test = {k: prep.splits["test"][k] for k in ("text_ids", "text_weights", "text_gauss",
+                                                "audio", "visual")}
+    forms = {"raw": _on_device(torch, test, dev),
+             "stats": _on_device(torch, stats_request(test), dev)}
+    servers = {g: ClosedFormServer(p["dec"], batch_sizes=SERVE_LADDER, sentiment_params=p["senti"],
+                                   word_embeddings=prep.vocab_embeddings, device=dev, graphs=g)
+               for g in (False, True)}
+    for s in servers.values():
+        for f in forms.values():
+            s(f), s(f)
+    windows, probes, reps = {}, {}, 8
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for path, fn in paths.items():
+            for g in (False, True):
+                tag = f"{path}|{'captured' if g else 'eager'}"
+                with _GraphProbe(torch, tag, ranges=True) as probe:
+                    fn(g)
+                probes[tag] = probe
+                # the fit's or the chunk's train fit: its last epoch is steady
+                windows[tag] = (f"{tag}|0|{probe.calls[0][1]}|{len(probe.epochs()) - 1}",
+                                STEPS_PER_EPOCH)
+        for name, f in forms.items():
+            for g in (False, True):
+                tag = f"serve_686_{name}|{'captured' if g else 'eager'}"
+                with record_function(tag):
+                    for _ in range(reps):
+                        servers[g](f)
+                    torch.cuda.synchronize()
+                windows[tag] = (tag, reps)
+    # one pass over the trace: the ranges (spans), the device events (kernels,
+    # copies and sets; the ranges' own device-side annotations, named as the
+    # ranges, span whole windows and are left out), the host's runtime calls,
+    # and K1 and K2 placed by the host time of the runtime call that launched
+    # them (cudaLaunchKernel, or cudaGraphLaunch for a replay's kernels; the
+    # same correlation id), which the device clock's offset cannot move
+    # across a range's edge; by their own start where no call matches
+    spans, device, host, launched_at, kernels = {}, [], [], {}, []
+    patterns = tuple(GRAPH_TRACED_KERNELS.values())
+    for e in prof.profiler.kineto_results.events():
+        name, start = e.name(), e.start_ns()
+        if e.device_type() == DeviceType.CUDA:
+            if "|" not in name:
+                device.append((start, start + e.duration_ns()))
+                if any(k in name for k in patterns):
+                    kernels.append((e.correlation_id(), start, name))
+        elif "|" in name:
+            spans[name] = (start, start + e.duration_ns())
+        elif name.startswith("cu"):
+            host.append((start, name))
+            if name.startswith("cuda") and "Launch" in name:
+                launched_at[e.correlation_id()] = start
+    device.sort()
+    named = [(launched_at.get(c, t), n, c in launched_at) for c, t, n in kernels]
+    placement = {"by_launch": sum(x[2] for x in named),
+                 "by_own_start": sum(not x[2] for x in named),
+                 "in_trace": {k: sum(pat in n for _, n, _ in named)
+                              for k, pat in GRAPH_TRACED_KERNELS.items()}}
+    out = {}
+    for tag, (span_name, per) in windows.items():
+        a, b = spans[span_name]
+        inside = [(s, e) for s, e in device if a <= s <= b]
+        busy, end = 0, a
+        for s, e in inside:  # the union of the device intervals
+            busy += max(0, e - max(s, end))
+            end = max(end, e)
+        calls = [n for t, n in host if a <= t <= b]
+        path, mode = tag.split("|")[:2]
+        out.setdefault(path, {})[mode] = {
+            "kernel_launches_per_step": sum("LaunchKernel" in n for n in calls) / per,
+            "graph_launches_per_step": sum("GraphLaunch" in n for n in calls) / per,
+            "copies_per_step": sum("Memcpy" in n or "Memset" in n for n in calls) / per,
+            "device_events": len(inside), "busy_ms": busy / 1e6, "wall_ms": (b - a) / 1e6,
+            "idle_share": 1 - busy / max(b - a, 1)}
+    for tag, probe in probes.items():  # K1 and K2 in the trace against the counters
+        path, mode = tag.split("|")
+        check = {"calls": 0, "replays": 0, "traced": dict.fromkeys(GRAPH_TRACED_KERNELS, 0),
+                 "counted": dict.fromkeys(GRAPH_TRACED_KERNELS, 0), "replay_traced":
+                 dict.fromkeys(GRAPH_TRACED_KERNELS, 0), "mismatched": []}
+        for _, _, _, launched, replays, name in probe.calls:
+            a, b = spans[name]
+            counted = {k: launched[k] for k in ("k1_fwd", "k1_bwd")}
+            counted["k2"] = launched["k2_adam"] + launched["k2_sgd"]
+            traced = {k: sum(a <= t <= b and pat in n for t, n, _ in named)
+                      for k, pat in GRAPH_TRACED_KERNELS.items()}
+            check["calls"] += 1
+            check["replays"] += replays
+            for k in traced:
+                check["traced"][k] += traced[k]
+                check["counted"][k] += counted[k]
+                check["replay_traced"][k] += traced[k] if replays else 0
+            if traced != counted:
+                check["mismatched"].append({"call": name, "traced": traced, "counted": counted})
+        out[path][mode]["launch_check"] = check
+    print(json.dumps({"paths": out, "placement": placement}), flush=True)
+    return 0
+
+
+def _traced_launches(graphs: dict, key: str) -> dict:
+    """Phase 20's traced runs, per path and mode: the launches of ``key``
+    (K1's ``k1_fwd`` / ``k1_bwd``, or ``k2``) the counters gave (graph
+    replays add their capture's), those the trace named, and those it named
+    inside replays."""
+    return {f"{path}_{m}": {"counted": c["counted"][key], "traced": c["traced"][key],
+                            "traced_in_replays": c["replay_traced"][key]}
+            for path, t in graphs["profiled"].items() for m, v in t.items()
+            for c in [v.get("launch_check")] if c is not None}
+
+
 def main() -> int:
     import torch
 
     if sys.argv[1:2] == ["--mesh-worker"]:  # one rank of phase 17's worlds
         return mesh_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--graphs-worker"]:  # phase 20's traced runs
+        return graphs_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2339,6 +2973,7 @@ def main() -> int:
         ops = check_numeric_ops(torch, alternating.pop("prep"))
         mesh = run_mesh(torch, K, T, tmp, non_e2e, e2e)
         aux = run_aux(tmp)
+        graphs = run_graphs(torch, K, T, tmp, e2e)
     check_small_agreement(torch)
     deep_e2e = run_deep_e2e(torch, K, T, e2e)
 
@@ -2373,6 +3008,7 @@ def main() -> int:
          "max_abs_err_mesh_shards": mesh[f"k1_{kind}_err"],
          "launches_profiled_run": aux["launches"][f"k1_{kind}"],
          "launches_deep_e2e": deep_e2e["launches"][f"k1_{kind}"],
+         "launches_traced_phase20": _traced_launches(graphs, f"k1_{kind}"),
          "max_abs_err_sweep_rows": sweep["k1"][f"{kind}_err"],
          **{f"{key}_d{d}_b{b}": val for (d, b), x in k1["deep"].items() for key, val in (
              ("ms", x["times"][kind]), ("plain_ms", x["times"][f"{kind}_plain"]),
@@ -2397,6 +3033,7 @@ def main() -> int:
          "bound_by_b512": k2["bounds"][kind][512][1],
          "launches_sweep_fused": fused_sweep[kind]["launches"][f"k2_{kind}"],
          "launches_sweep_multihost": [r[f"k2_{kind}"] for r in mesh["sweep_launches"]],
+         "launches_traced_phase20_adam_and_sgd": _traced_launches(graphs, "k2"),
          "ms_k32": k2["times"][kind]["k32"]["kernel"],
          "plain_ms_k32": k2["times"][kind]["k32"]["plain"],
          "ms_2d_x32": k2["times"][kind]["k32"]["sliced"],
@@ -2423,7 +3060,8 @@ def main() -> int:
                   "mesh": {k: mesh[k] for k in ("diffs", "vocab_checks", "seconds",
                                                 "finite_sweep_configs")},
                   "aux": {k: aux[k] for k in ("trace_kernels", "trace_k1", "wall_s")},
-                  "deep_e2e": {k: v for k, v in deep_e2e.items() if k != "launches"}},
+                  "deep_e2e": {k: v for k, v in deep_e2e.items() if k != "launches"},
+                  "graphs": graphs},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

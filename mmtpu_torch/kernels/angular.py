@@ -33,14 +33,16 @@ import math
 
 import torch
 
+from mmtpu_torch.graphs import launch_counter
 from mmtpu_torch.kernels.build import Tickets, blocks_per_sm, sm_count
 from mmtpu_torch.ops.wordprob import _ACOS_CLIP, _COS_EPS
 from mmtpu_torch.ops.wordprob import angular_partition as angular_partition_ref
 
 _PI = math.pi
 
-# kernel launches by wrapper; read (and reset) by chip_smoke.py
-LAUNCHES = {"fwd": 0, "bwd": 0}
+# kernel launches by wrapper; read (and reset) by chip_smoke.py, and added to
+# on each CUDA graph replay (mmtpu_torch/graphs.py)
+LAUNCHES = launch_counter({"fwd": 0, "bwd": 0})
 
 
 def angular_partition_bwd_ref(latents, vocab, vnorm, g):

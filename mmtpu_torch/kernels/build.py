@@ -150,16 +150,29 @@ class Tickets:
     """A kernel's int32 tickets on each (card, stream): zeros that the kernel
     takes and sets back to 0 before it ends, so calls queued on one stream
     each find them at 0.  Allocated at first use, grown, never shrunk; each
-    kernel that counts its blocks this way keeps its own."""
+    kernel that counts its blocks this way keeps its own.
+
+    A CUDA graph keeps the address it captured, so a buffer that growth
+    replaces is kept alive (a graph captured before may still replay it),
+    and a capture never allocates one: the body's warm-up on the capture
+    stream (:mod:`mmtpu_torch.graphs`) has made it, zeroed, outside
+    the graph.  Replays of graphs captured on one stream run in order on
+    their replay stream, each finding the tickets at 0."""
 
     def __init__(self) -> None:
         self._bufs: dict = {}
+        self._replaced: list = []
 
     def __call__(self, device, stream: int, n: int):
         import torch
 
         t = self._bufs.get((device.index, stream))
         if t is None or t.numel() < n:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"kernel tickets: {n} needed on a stream being captured that "
+                                   "has none; warm the body up on the capture stream first")
+            if t is not None:
+                self._replaced.append(t)
             t = torch.zeros(n, dtype=torch.int32, device=device)
             self._bufs[(device.index, stream)] = t
         return t

@@ -34,19 +34,24 @@ card each travels to the kernel on its own: a tensor on the card by its
 device pointer (converted to float32 there only where it is not already), a
 ``(K,)`` host tensor copied to the card first, a number or a 0-d host tensor
 by value.  A caller that keeps them on the device never waits for the host.
+Inside a CUDA graph capture (:mod:`mmtpu_torch.graphs`) a host tensor
+is refused: a graph would freeze a one-element tensor's value and replay a
+copy from host memory that may be gone; a number is a constant of the graph.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mmtpu_torch.graphs import launch_counter
 from mmtpu_torch.kernels.angular import fwd_grid
 from mmtpu_torch.kernels.build import Tickets, blocks_per_sm, sm_count
 from mmtpu_torch.train.optim import _B1, _B2, _EPS
 from mmtpu_torch.tree import per_config
 
-# kernel launches by wrapper; read (and reset) by chip_smoke.py
-LAUNCHES = {"adam": 0, "sgd": 0}
+# kernel launches by wrapper; read (and reset) by chip_smoke.py, and added to
+# on each CUDA graph replay (mmtpu_torch/graphs.py)
+LAUNCHES = launch_counter({"adam": 0, "sgd": 0})
 
 
 def _keep(flag, w):
@@ -121,6 +126,10 @@ def _scalar(s, device) -> tuple:
     value."""
     if not isinstance(s, torch.Tensor):
         return None, float(s), 0, None
+    if (s.device.type == "cpu" and device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("decoder update: a host tensor scalar inside a CUDA graph capture; "
+                           "pass a device tensor (or a number, a constant of the graph)")
     if s.numel() == 1 and s.device.type == "cpu":
         return None, float(s), 0, None
     if s.device != device or s.dtype != torch.float32 or not s.is_contiguous():

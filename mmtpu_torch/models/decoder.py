@@ -112,7 +112,8 @@ def apply_norm(x: torch.Tensor, norm_params: Mapping[str, torch.Tensor], norm_co
     biased variance and eps 1e-5.  ``batch_weights`` are ``(B,)`` 0/1
     row-validity weights: padded rows are left out of the batch statistics.
     ``norm_code`` may be an int, a 0-d tensor or a ``(K,)`` tensor; all three
-    results are computed and one is selected per config.
+    results are computed and one is selected per config (an int is filled
+    on the device, so that a captured step copies nothing from the host).
 
     ``row_sum`` (with ``batch_weights``) sums the statistics' partial row
     sums over the ranks that hold the rest of the batch (the mesh fits'
@@ -138,7 +139,9 @@ def apply_norm(x: torch.Tensor, norm_params: Mapping[str, torch.Tensor], norm_co
         sq = torch.sum(torch.square(x - bn_mean) * w, dim=-2, keepdim=True)
         bn_var = (sq if row_sum is None else row_sum(sq)) / denom
     bn = (x - bn_mean) / torch.sqrt(bn_var + _NORM_EPS) * scale + bias
-    code = per_config(torch.as_tensor(norm_code, device=x.device), x.ndim)
+    code = (torch.as_tensor(norm_code, device=x.device) if isinstance(norm_code, torch.Tensor)
+            else torch.full((), norm_code, device=x.device))
+    code = per_config(code, x.ndim)
     return torch.where(code == NORM_LAYER, ln, torch.where(code == NORM_BATCH, bn, x))
 
 

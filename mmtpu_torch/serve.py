@@ -12,9 +12,13 @@ gradient loop (port of :mod:`mmtpu.serve`).
   (:func:`mmtpu_torch.train.warm_start.closed_form_latents_from_stats`),
   with the same estimate as from the raw streams when no masks are given.
 
-mmtpu compiles one program per ladder size; here :meth:`ClosedFormServer.warmup`
-runs each size once on the device.  A request larger than the ladder's
-largest size runs at its own size, as one call, as in mmtpu.
+mmtpu compiles one program per ladder size; here, on the card, each ladder
+size and request form (raw or statistics, and the request's keys) is one
+CUDA graph (:mod:`mmtpu_torch.graphs`): :meth:`ClosedFormServer.warmup`
+warms each size up and captures it, and a request copies its padded arrays
+into the size's static inputs, replays, and copies the answer out.  A
+request larger than the ladder's largest size runs eagerly at its own size,
+as one call, as in mmtpu.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from mmtpu_torch.models.decoder import assemble_head_data
 from mmtpu_torch.models.sentiment import apply_sentiment
 from mmtpu_torch.ops.closed_form import closed_form_latents
+from mmtpu_torch.graphs import Graphs, use_graphs
 from mmtpu_torch.train.warm_start import closed_form_latents_from_stats
 from mmtpu_torch.tree import tree_map
 
@@ -77,11 +82,15 @@ class ClosedFormServer:
             carry ``text_ids`` in place of gathered ``text`` vectors.
         device: where the weights live and requests run (``"cuda"`` by
             default; asking for CUDA where there is none raises).
+        graphs: :func:`mmtpu_torch.graphs.use_graphs`'s argument: True
+            (the default) captures one graph per ladder size and form on
+            the card and runs eagerly on the CPU; False runs eagerly on the
+            card.
     """
 
     def __init__(self, decoder_params, heads: Optional[Sequence[str]] = None,
                  batch_sizes: Sequence[int] = (64, 256, 1024), sentiment_params=None,
-                 word_embeddings=None, device="cuda"):
+                 word_embeddings=None, device="cuda", graphs: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
@@ -91,6 +100,7 @@ class ClosedFormServer:
         self.batch_sizes = sorted(batch_sizes)
         self._senti = None if sentiment_params is None else tree_map(move, sentiment_params)
         self._vocab = None if word_embeddings is None else move(word_embeddings)
+        self._graphs = Graphs(self.device, use_graphs(graphs, self.device))
 
     def _chain(self, lat):
         return lat, (None if self._senti is None else apply_sentiment(self._senti, lat))
@@ -117,9 +127,12 @@ class ClosedFormServer:
         return self._chain(lat)
 
     def warmup(self, example: Mapping) -> None:
-        """Run every ladder size once, from one example request."""
+        """Run every ladder size from one example request: once eagerly and,
+        on the card, once more to capture the size's graph for the
+        example's form."""
         for bs in self.batch_sizes:
-            self(example, _force_batch=bs)
+            for _ in range(2 if self._graphs.enabled else 1):
+                self(example, _force_batch=bs)
 
     def _pad(self, x, target: int) -> torch.Tensor:
         """``x`` on the device with ``target`` rows: a float32 or int64 device
@@ -155,6 +168,10 @@ class ClosedFormServer:
             i = bisect.bisect_left(self.batch_sizes, b)
             target = self.batch_sizes[i] if i < len(self.batch_sizes) else b
         padded = {k: self._pad(v, target) for k, v in batch.items()}
-        lat, pred = (self._run_stats if "audio_s0" in batch else self._run)(padded)
+        run = self._run_stats if "audio_s0" in batch else self._run
+        if target in self.batch_sizes:  # a ladder size: its graph on the card
+            lat, pred = self._graphs(run.__name__, run, padded)
+        else:
+            lat, pred = run(padded)
         lat = lat.cpu().numpy()[:b]
         return lat, (None if pred is None else pred.cpu().numpy()[:b])

@@ -186,7 +186,7 @@ class SweepDraws:
 
 def build_sweep_parts(statics: SweepStatics, labels: Dict[str, torch.Tensor],
                       vocab: torch.Tensor, dataset_name: str,
-                      senti_mask=None) -> Dict[str, Callable]:
+                      senti_mask=None, graphs: bool = True) -> Dict[str, Callable]:
     """The chunk's four phases as functions of the per-config inputs (with
     or without the config axis): ``train(init, dec, senti, hp, data, perms,
     validation) -> (embed, dec, losses, valid_curve or None)``, ``infer(init,
@@ -197,7 +197,15 @@ def build_sweep_parts(statics: SweepStatics, labels: Dict[str, torch.Tensor],
     (the reference's ``--semi_sup_idxes``, shared by every config): the e2e
     joint loss zeroes the sentiment term of unlabeled rows, and the
     sentiment phase trains on the labeled rows only (as
-    :func:`mmtpu.sweep.runner.build_sweep_parts`)."""
+    :func:`mmtpu.sweep.runner.build_sweep_parts`).
+
+    ``graphs`` (:func:`mmtpu_torch.graphs.use_graphs`) reaches the
+    train and infer fits: on the card each of their epochs is one CUDA graph
+    replay where the fit is long enough to repay its capture (an inference
+    fit's epochs are capped by ``infer_epochs_cap``).  Nothing in them reads
+    the host between epochs (the config
+    axis's epoch masks are device tensors).  ``sent`` and ``score`` run
+    eagerly."""
     valid_every = 80 if statics.validation_curve else 0  # valid_niter * 8
     lspec = LatentFitSpec(n_epochs_max=statics.n_epochs_max, batch_size=statics.batch_size,
                           train_decoder=True, unimodal=statics.unimodal,
@@ -226,11 +234,11 @@ def build_sweep_parts(statics: SweepStatics, labels: Dict[str, torch.Tensor],
     def train(init, dec, senti, hp, data, perms, validation=None):
         if statics.e2e:
             out = fit_e2e(init, dec, senti, data, labels["train"], vocab, hp, espec,
-                          senti_mask=mask, perms=perms, validation=validation)
+                          senti_mask=mask, perms=perms, validation=validation, graphs=graphs)
             embed, dec2, losses = out[0], out[1], out[3]
         else:
             out = fit_latents(init, dec, data, vocab, hp, lspec, perms=perms,
-                              validation=validation)
+                              validation=validation, graphs=graphs)
             embed, dec2, losses = out[:3]
         return embed, dec2, losses, (out[-1] if validation is not None else None)
 
@@ -250,7 +258,8 @@ def build_sweep_parts(statics: SweepStatics, labels: Dict[str, torch.Tensor],
             n = hp["n_epochs"]
             hp = dict(hp, n_epochs=torch.clamp(n, max=cap) if isinstance(n, torch.Tensor)
                       else min(n, cap))
-        return fit_latents(init, dec, data, vocab, hp, infer_spec(init.shape[-2]))[0]
+        return fit_latents(init, dec, data, vocab, hp, infer_spec(init.shape[-2]),
+                           graphs=graphs)[0]
 
     def sent(senti, train_e, valid_e, s_hp, perms):
         if sel is not None:
@@ -304,7 +313,7 @@ def _stack(trees: list, device) -> dict:
 
 def _execute(configs: Sequence[dict], prep: PreparedData, statics: SweepStatics,
              draws: Sequence, device: torch.device, return_embeddings: bool,
-             config_axis: bool, senti_mask=None) -> SweepResult:
+             config_axis: bool, senti_mask=None, graphs: bool = True) -> SweepResult:
     """Run the four phases for ``configs``: with the config axis, or (one
     config, ``config_axis=False``) through the plain single-config inputs."""
     t_start = time.perf_counter()
@@ -358,7 +367,7 @@ def _execute(configs: Sequence[dict], prep: PreparedData, statics: SweepStatics,
             split["pos_mask"] = pm
     validation = (init["valid"], data["valid"]) if statics.validation_curve else None
 
-    parts = build_sweep_parts(statics, labels, vocab, prep.name, senti_mask)
+    parts = build_sweep_parts(statics, labels, vocab, prep.name, senti_mask, graphs)
     phase_s: Dict[str, float] = {}
 
     def timed(name, fn, *args):
@@ -421,20 +430,20 @@ def _concat(parts: Sequence[SweepResult], wall_time_s: float) -> SweepResult:
 
 def _execute_chunk(configs: Sequence[dict], prep: PreparedData, statics: SweepStatics,
                    draws: Sequence, device: torch.device, return_embeddings: bool,
-                   senti_mask=None, mesh=None) -> SweepResult:
+                   senti_mask=None, mesh=None, graphs: bool = True) -> SweepResult:
     """One chunk with the config axis; with ``mesh``, this rank's block of
     the configs (with the whole chunk's statics), then every rank's blocks
     gathered."""
     if mesh is None:
         return _execute(configs, prep, statics, draws, device, return_embeddings,
-                        config_axis=True, senti_mask=senti_mask)
+                        config_axis=True, senti_mask=senti_mask, graphs=graphs)
     t0 = time.perf_counter()
     sharding = config_sharding(mesh)
     blk = sharding.block(len(configs))
     local = None
     if blk.stop > blk.start:  # more ranks than configs leave a rank none
         local = _execute(configs[blk], prep, statics, draws[blk], device, return_embeddings,
-                         config_axis=True, senti_mask=senti_mask)
+                         config_axis=True, senti_mask=senti_mask, graphs=graphs)
     parts = [p for p in sharding.gather(local) if p is not None]
     return _concat(parts, time.perf_counter() - t0)
 
@@ -466,7 +475,8 @@ def run_chunk(configs: Sequence[dict], prep: PreparedData, *, batch_size: int = 
               return_embeddings: bool = False, device="cuda", draws: Optional[Sequence] = None,
               fused_dec_update: bool = False, validation_curve: bool = False,
               infer_warm_start: bool = False, infer_epochs_cap: int = 0,
-              infer_batch_clamp: bool = False, senti_mask=None, mesh=None) -> SweepResult:
+              infer_batch_clamp: bool = False, senti_mask=None, mesh=None,
+              graphs: bool = True) -> SweepResult:
     """Train ``configs`` (one optimizer kind, one e2e mode, one word metric)
     as one chunk with a leading config axis on ``device``.
 
@@ -485,7 +495,8 @@ def run_chunk(configs: Sequence[dict], prep: PreparedData, *, batch_size: int = 
     ``infer_epochs_cap``, ``infer_batch_clamp``, ``senti_mask`` and
     ``mesh`` (every rank of the mesh calls with the same configs; each
     trains its block of them on ``device``, its own, and every rank returns
-    the whole chunk's result).
+    the whole chunk's result).  ``graphs`` as :func:`build_sweep_parts`'s:
+    True captures the train and infer fits' epochs on the card.
     """
     _check_mesh(mesh)
     if not configs:
@@ -498,12 +509,12 @@ def run_chunk(configs: Sequence[dict], prep: PreparedData, *, batch_size: int = 
                             infer_epochs_cap=int(infer_epochs_cap),
                             infer_batch_clamp=infer_batch_clamp)
     return _execute_chunk(configs, prep, statics, _draws_for(configs, draws, seed), device,
-                          return_embeddings, senti_mask=senti_mask, mesh=mesh)
+                          return_embeddings, senti_mask=senti_mask, mesh=mesh, graphs=graphs)
 
 
 def run_config_alone(config: dict, prep: PreparedData, *, batch_size: int = 64,
                      unimodal: bool = False, seed: int = 0, lazy_adam: bool = True,
-                     device="cuda", draws=None) -> SweepResult:
+                     device="cuda", draws=None, graphs: bool = True) -> SweepResult:
     """One config of a chunk run by itself through the single-config fits
     (no config axis), with the draws it has in any chunk: the reference
     that the chunk is held to.  Returns a one-config :class:`SweepResult`
@@ -513,7 +524,7 @@ def run_config_alone(config: dict, prep: PreparedData, *, batch_size: int = 64,
                             lazy_adam=lazy_adam)
     return _execute([config], prep, statics,
                     _draws_for([config], None if draws is None else [draws], seed), device,
-                    return_embeddings=True, config_axis=False)
+                    return_embeddings=True, config_axis=False, graphs=graphs)
 
 
 def _kernel_build_s(device: torch.device) -> float:

@@ -44,6 +44,7 @@ from mmtpu_torch.train.latents import (
     epoch_active,
     epoch_permutation,
     finish_fit_decoder,
+    fit_graphs,
     fit_kind,
     gather_batch,
     joint_neg_log_prob_per_sample,
@@ -99,7 +100,8 @@ def senti_l1(sen, lat, y, mask) -> torch.Tensor:
 def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mapping,
             labels: torch.Tensor, vocab_emb: torch.Tensor, hp: Mapping, spec: E2EFitSpec,
             senti_mask: torch.Tensor | None = None, generator: torch.Generator | None = None,
-            perms: Sequence | None = None, validation=None, mesh=None):
+            perms: Sequence | None = None, validation=None, mesh=None,
+            graphs: bool = True):
     """The joint fit; returns ``(embed, decoder_params, senti_params, losses)``,
     and ``valid_losses`` after them when ``validation = (valid_init,
     valid_data)`` is given and ``spec.valid_every > 0`` (as
@@ -111,7 +113,9 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     all ``(K,)``, as the inputs are there.  ``senti_mask`` is
     the per-utterance 0/1 labeled mask (None: fully supervised).  ``perms``,
     one permutation per epoch, replaces the draws from ``generator``.
-    ``mesh`` as :func:`mmtpu_torch.train.latents.fit_latents`'s.
+    ``mesh`` and ``graphs`` as :func:`mmtpu_torch.train.latents.fit_latents`'s:
+    on the card each epoch (the sentiment head and its optimizer state in
+    the carry) runs as one CUDA graph replay.
     """
     lspec = spec.latent_spec()
     shard = batch_shard(dataclasses.replace(lspec, valid_every=spec.valid_every), mesh, hp,
@@ -146,10 +150,8 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
         dec_gates = {"heads": tree_map(lambda _: heads_gate, dec["heads"]),
                      "norm": tree_map(lambda _: 1.0, dec["norm"])}
 
-    losses, curve = [], []
-    for epoch in range(spec.n_epochs_max):
-        active = epoch_active(epoch, hp)
-        perm = epoch_permutation(epoch, n, spec, device, generator, perms)
+    def body(carry, perm, active):
+        embed, dec, sen, e_opt, d_opt, s_opt = carry
         table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
         batch_losses = []
         for s in range(n_batches):
@@ -195,13 +197,25 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
             table.step(s, g_rows)
             batch_losses.append(loss.detach())
         embed, e_opt = table.finish()
-        losses.append(torch.sum(torch.stack(batch_losses), dim=0))
+        return (embed, dec, sen, e_opt, d_opt, s_opt), torch.sum(torch.stack(batch_losses), dim=0)
+
+    # the host part of each epoch, then its device body (a graph replay where
+    # graphs says so; a batch-sharded fit runs eagerly)
+    run = fit_graphs(graphs, device, shard, spec.n_epochs_max)
+    carry = (embed, dec, sen, e_opt, d_opt, s_opt)
+    losses, curve = [], []
+    for epoch in range(spec.n_epochs_max):
+        active = epoch_active(epoch, hp)
+        perm = epoch_permutation(epoch, n, spec, device, generator, perms)
+        carry, loss = run("e2e_epoch", body, carry, perm, active, carry=True)
+        losses.append(loss)
         if inner_spec is not None:
-            curve.append(valid_curve_entry(epoch, spec, validation, dec, vocab_emb, hp,
-                                           inner_spec))
+            curve.append(valid_curve_entry(epoch, spec, validation, carry[1], vocab_emb, hp,
+                                           inner_spec, graphs))
+    embed, dec, sen = carry[:3]
     out = (embed, finish_fit_decoder(dec, data, lspec, was_stacked), sen,
            torch.stack(losses, dim=-1))
     if inner_spec is None:
         return out
-    curve.append(valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec))
+    curve.append(valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec, graphs))
     return out + (torch.stack(curve, dim=-1),)

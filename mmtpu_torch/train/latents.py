@@ -5,6 +5,9 @@ training, the decoder), by SGD/Adam on the negative joint log-likelihood,
 minibatched with a per-epoch shuffle.  Inference for valid/test is the same
 fit with the decoder frozen.  Python loops over epochs and minibatches take
 the place of mmtpu's two ``lax.scan``s; the arithmetic of a step is mmtpu's.
+On the card each epoch's steps run as one CUDA graph replay (the inner scan
+as one program; :mod:`mmtpu_torch.graphs`), and the host loop over
+epochs draws the permutations between replays.
 
 Each epoch runs in permuted space: the table is gathered once into the
 epoch's order, minibatch ``s`` is rows ``[s*B, (s+1)*B)`` of it, and the last
@@ -71,6 +74,7 @@ from mmtpu_torch.train.optim import (
     lazy_adam_touch,
     opt_update,
 )
+from mmtpu_torch.graphs import Graphs, use_graphs
 from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
 
 
@@ -420,10 +424,24 @@ def batch_shard(spec, mesh, hp: Mapping, init_embed: torch.Tensor, validation=No
     return BatchShard(mesh.groups[axis], mesh.size(axis), mesh.index(axis), sync_stats=sync)
 
 
+def fit_graphs(graphs: bool, device, shard, epochs: int) -> Graphs:
+    """The :class:`mmtpu_torch.graphs.Graphs` of a fit of ``epochs``
+    epochs (:func:`mmtpu_torch.graphs.use_graphs`).  A batch-sharded fit
+    runs eagerly: its steps hold collectives, and capturing them waits for
+    NCCL capture and a four-card measurement."""
+    return Graphs(device, shard is None and use_graphs(graphs, device, epochs))
+
+
 def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: int, device,
-                generator, perms, shard=None):
+                generator, perms, epochs: int, shard=None, graphs=True):
     """One epoch of a latent fit, ``epoch(carry, epoch_idx) -> (carry, loss)``;
-    ``shard`` splits each step's rows over a mesh axis (:func:`batch_shard`)."""
+    ``shard`` splits each step's rows over a mesh axis (:func:`batch_shard`).
+
+    The epoch's host part (its permutation, and ``epoch_active`` where that
+    is a Python bool) runs first; its device body, every step of the epoch
+    unrolled as mmtpu's scan body, reads nothing back to the host, and runs
+    as a CUDA graph replay where ``graphs`` says so for a fit of ``epochs``
+    epochs (:func:`fit_graphs`; ``epoch.graphs`` holds the fit's graphs)."""
     kind = fit_kind(spec, hp)
     fused = spec.train_decoder and spec.fused_dec_update
     # mmtpu's gate: the static kind, so opt_kind=None runs dense Adam
@@ -439,10 +457,8 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
     # (simplesif.py:55-56): the non-e2e freeze semantics
     dec_gate = hp["train_dec"] if "train_dec" in hp else None
 
-    def epoch(carry, epoch_idx: int):
+    def body(carry, perm, active):
         embed, dec, e_opt, d_opt = carry
-        active = epoch_active(epoch_idx, hp)
-        perm = epoch_permutation(epoch_idx, n, spec, device, generator, perms)
         table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
         dec_gates = None if dec_gate is None else tree_map(lambda _: dec_gate, dec)
         batch_losses = []
@@ -480,19 +496,29 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
         embed, e_opt = table.finish()
         return (embed, dec, e_opt, d_opt), torch.sum(torch.stack(batch_losses), dim=0)
 
+    run = fit_graphs(graphs, device, shard, epochs)
+
+    def epoch(carry, epoch_idx: int):
+        active = epoch_active(epoch_idx, hp)
+        perm = epoch_permutation(epoch_idx, n, spec, device, generator, perms)
+        return run("latent_epoch", body, carry, perm, active, carry=True)
+
+    epoch.graphs = run
     return epoch
 
 
 def fit_latents_segment(carry: tuple, data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec,
                         epoch_start: int, n_seg: int, generator: torch.Generator | None = None,
-                        perms: Sequence | None = None):
+                        perms: Sequence | None = None, graphs: bool = True):
     """Epochs ``[epoch_start, epoch_start + n_seg)`` of a latent fit from
     ``carry`` (:func:`init_fit_carry`); returns ``(carry, losses)`` with
     ``losses`` ``(n_seg,)``.  ``perms`` holds every epoch of the fit (indexed
     by epoch); ``generator`` must be in the state that the uninterrupted fit
-    reaches at ``epoch_start``."""
+    reaches at ``epoch_start``.  ``graphs`` as :func:`fit_latents`'s, for
+    a fit of ``n_seg`` epochs: the segment's epochs after its first replay
+    one captured graph."""
     epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[-2], carry[0].device,
-                        generator, perms)
+                        generator, perms, n_seg, graphs=graphs)
     losses = []
     for e in range(epoch_start, epoch_start + n_seg):
         carry, loss = epoch(carry, e)
@@ -508,12 +534,14 @@ def make_inner_valid_spec(spec, valid_batch_mult: int) -> LatentFitSpec:
                                batch_size=spec.batch_size * valid_batch_mult, valid_every=0)
 
 
-def valid_fit_loss(validation, dec, vocab_emb, hp: Mapping, inner_spec) -> torch.Tensor:
+def valid_fit_loss(validation, dec, vocab_emb, hp: Mapping, inner_spec,
+                   graphs: bool = True) -> torch.Tensor:
     """One validation sample: the valid split refit from its SIF init against
     the frozen decoder ``dec``; the loss of its last active epoch (each
-    config's own under the config axis, ``(K,)``)."""
+    config's own under the config axis, ``(K,)``).  The refit is a fit of
+    its own, captured apart from the fit that samples it."""
     v_init, v_data = validation
-    _, _, v_losses = fit_latents(v_init, dec, v_data, vocab_emb, hp, inner_spec)
+    _, _, v_losses = fit_latents(v_init, dec, v_data, vocab_emb, hp, inner_spec, graphs=graphs)
     n, last = hp["n_epochs"], inner_spec.n_epochs_max - 1
     if isinstance(n, torch.Tensor) and n.ndim == 1:
         idx = torch.clamp(n.to(torch.long) - 1, 0, last)
@@ -522,7 +550,7 @@ def valid_fit_loss(validation, dec, vocab_emb, hp: Mapping, inner_spec) -> torch
 
 
 def valid_curve_entry(epoch: int, spec, validation, dec, vocab_emb, hp: Mapping,
-                      inner_spec) -> torch.Tensor:
+                      inner_spec, graphs: bool = True) -> torch.Tensor:
     """The curve at ``epoch``: a sample on active epochs at the cadence, else
     NaN (mmtpu's code; its docstring says the last value repeats).  Under
     the config axis the refit runs for every config at the cadence, and a
@@ -531,13 +559,14 @@ def valid_curve_entry(epoch: int, spec, validation, dec, vocab_emb, hp: Mapping,
     active = epoch_active(epoch, hp)
     if epoch % spec.valid_every != 0 or active is False:
         return nan
-    loss = valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec)
+    loss = valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec, graphs)
     return loss if active is True else torch.where(active, loss, nan)
 
 
 def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_emb: torch.Tensor,
                 hp: Mapping, spec: LatentFitSpec, generator: torch.Generator | None = None,
-                perms: Sequence | None = None, validation=None, mesh=None):
+                perms: Sequence | None = None, validation=None, mesh=None,
+                graphs: bool = True):
     """Run the full latent fit; returns ``(embed, decoder_params, losses)``,
     and ``valid_losses`` after them when ``validation`` is given and
     ``spec.valid_every > 0``.
@@ -571,6 +600,14 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     ``spec.batch_shard_axis`` names, and ``vocab_emb`` may be this rank's
     vocab shard of it (:func:`mmtpu_torch.parallel.fit.fit_latents_mesh`
     sets them up; :func:`batch_shard` says what it refuses).
+
+    ``graphs`` (:func:`mmtpu_torch.graphs.use_graphs`): True (the default)
+    runs each epoch as a CUDA graph replay on the card (the first epoch
+    eagerly, as the warm-up; the second captures) when the fit runs at
+    least :data:`mmtpu_torch.graphs.MIN_EPOCHS` epochs, and eagerly
+    otherwise and on the CPU; False runs eagerly on the card too.  A
+    batch-sharded fit runs eagerly.  The validation curve's refits are fits
+    of their own, captured apart.
     """
     shard = batch_shard(spec, mesh, hp, init_embed, validation)
     was_stacked = is_stacked(decoder_params)
@@ -579,17 +616,17 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
         inner_spec = make_inner_valid_spec(spec, spec.valid_batch_mult)
     carry = init_fit_carry(init_embed, decoder_params, spec, hp)
     epoch = _make_epoch(data, vocab_emb, hp, spec, carry[0].shape[-2], carry[0].device,
-                        generator, perms, shard)
+                        generator, perms, spec.n_epochs_max, shard, graphs)
     losses, curve = [], []
     for e in range(spec.n_epochs_max):
         carry, loss = epoch(carry, e)
         losses.append(loss)
         if inner_spec is not None:
             curve.append(valid_curve_entry(e, spec, validation, carry[1], vocab_emb, hp,
-                                           inner_spec))
+                                           inner_spec, graphs))
     out = (carry[0], finish_fit_decoder(carry[1], data, spec, was_stacked),
            torch.stack(losses, dim=-1))
     if inner_spec is None:
         return out
-    curve.append(valid_fit_loss(validation, carry[1], vocab_emb, hp, inner_spec))
+    curve.append(valid_fit_loss(validation, carry[1], vocab_emb, hp, inner_spec, graphs))
     return out + (torch.stack(curve, dim=-1),)

@@ -74,10 +74,13 @@ def _select(active, new, old):
 
 def _gated(active, gate):
     """``active and gate > 0``: a bool while both are Python values, else a
-    bool tensor (0-d, or ``(K,)`` per config)."""
+    bool tensor (0-d, or ``(K,)`` per config).  No tensor is read on the
+    host and none is made from host data, so a captured step may call it."""
     if isinstance(gate, torch.Tensor):
         on = gate > 0
-        return on if active is True else on & torch.as_tensor(active, device=on.device)
+        if isinstance(active, bool):
+            return on if active else torch.zeros_like(on)
+        return on & active
     if isinstance(active, torch.Tensor):
         return active & (gate > 0)
     return bool(active) and gate > 0
@@ -131,27 +134,32 @@ def lazy_adam_coeffs(count0: torch.Tensor, n_steps: int, lr):
     """Per-epoch coefficients of the lazy-Adam closed forms, each ``(n_steps,)``
     (``(K, n_steps)`` for a ``(K,)`` count and rate; entry ``j-1`` is epoch
     step ``j``, global step ``count0 + j``):
-    ``(A1, A2, bc1, bc2)`` with ``A1 = lr * beta1**j / bc1`` and
+    ``(A1, A2, bc1, bc2, s)`` with ``A1 = lr * beta1**j / bc1`` and
     ``A2 = beta2**j / bc2``, so that the zero-gradient step ``j`` moves a
-    parameter by ``A1 * m0 / (sqrt(A2 * v0) + eps)``.  Powers and bias
-    corrections in float32 on ``count0``'s device, as mmtpu's."""
+    parameter by ``A1 * m0 / (sqrt(A2 * v0) + eps)``, and ``s`` the block
+    indices ``0 .. n_steps-1`` as float32 on the device, the exponents of
+    :func:`lazy_adam_catch_up`'s moment decays.  Powers and bias corrections
+    in float32 on ``count0``'s device, as mmtpu's."""
     j = torch.arange(1, n_steps + 1, dtype=torch.float32, device=count0.device)
     t = per_config(count0.to(torch.float32), 2) + j
     bc1 = 1.0 - torch.pow(_B1, t)
     bc2 = 1.0 - torch.pow(_B2, t)
-    return per_config(lr, 2) * torch.pow(_B1, j) / bc1, torch.pow(_B2, j) / bc2, bc1, bc2
+    return (per_config(lr, 2) * torch.pow(_B1, j) / bc1, torch.pow(_B2, j) / bc2, bc1, bc2,
+            j - 1.0)
 
 
 @torch.no_grad()
 def lazy_adam_catch_up(p0, m0, v0, s: int, coeffs):
     """A block's state after its ``s`` pending zero-gradient steps of the
-    epoch (``s = 0``: unchanged)."""
+    epoch (``s = 0``: unchanged).  The decays' exponent is entry ``s`` of
+    the coefficients' device vector: nothing is copied from the host, so a
+    captured epoch may call it."""
     if s == 0:
         return p0, m0, v0
     # (s, [K,] 1, 1): the pending steps lead, against (..., B, D) blocks
     a1, a2 = (c[..., :s].movedim(-1, 0)[..., None, None] for c in coeffs[:2])
     p_s = p0 - torch.sum(a1 * m0 / (torch.sqrt(a2 * v0) + _EPS), dim=0)
-    sf = torch.tensor(float(s), device=p0.device)
+    sf = coeffs[4][s]
     return p_s, torch.pow(_B1, sf) * m0, torch.pow(_B2, sf) * v0
 
 

@@ -15,6 +15,7 @@ import torch
 
 import mmtpu_torch.kernels.angular as K
 import mmtpu_torch.kernels.decoder_update as T
+from mmtpu_torch.graphs import MIN_EPOCHS
 
 
 @pytest.fixture
@@ -448,3 +449,190 @@ def test_step_timer_with_block_waits_for_the_card(cuda_device):
             x = x @ x / 64.0
         done.record()
     assert done.query() and len(timer.times) == 1
+
+
+def _tiny_fit_inputs(dev, seed=0):
+    """A small synthetic MOSI on ``dev``: the training fit's inputs."""
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.convert import to_torch
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
+    from mmtpu_torch.runner import Draws, build_hp
+    from mmtpu_torch.train.latents import train_view
+    from mmtpu_torch.tree import tree_map
+
+    prep = prepare_device_data(synthesize_dataset(
+        "mosi", n_train=40, n_valid=10, n_test=12, vocab_size=100, embed_dim=16, audio_dim=6,
+        visual_dim=5, seed=seed), pos_embed_dim=2)
+    cfg = ExperimentConfig(dataset="mosi", n_epochs=MIN_EPOCHS, batch_size=8,
+                           norm="layer_norm", lr=1e-3, likelihood_weight=0.3)
+    draws = Draws(seed)
+    dec = tree_map(lambda t: t.to(dev), draws.init_decoder(16, prep.audio_dim, prep.visual_dim,
+                                                           False, prep.text_gauss_dim))
+    sen = tree_map(lambda t: t.to(dev), draws.init_e2e_sentiment(16, 8, 1))
+    hp = dict(build_hp(cfg, dev), train_heads=torch.tensor(1.0, device=dev))
+    return {"init": to_torch(prep.sif_init["train"], dev), "dec": dec, "sen": sen,
+            "data": to_torch(train_view(prep.splits["train"]), dev),
+            "labels": to_torch(prep.labels["train"], dev),
+            "vocab": to_torch(prep.vocab_embeddings, dev), "hp": hp,
+            "perms": draws.train_permutations(40, MIN_EPOCHS)}
+
+
+@pytest.fixture
+def made_graphs(monkeypatch):
+    """Every :class:`mmtpu_torch.graphs.Graphs` made in the test."""
+    from mmtpu_torch import graphs as G
+
+    made, init = [], G.Graphs.__init__
+
+    def record(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    monkeypatch.setattr(G.Graphs, "__init__", record)
+    return made
+
+
+def _fit(kind: str, x: dict, graphs, epochs: int = MIN_EPOCHS):
+    from mmtpu_torch.train.e2e import E2EFitSpec, fit_e2e
+    from mmtpu_torch.train.latents import LatentFitSpec, fit_latents
+
+    opt, rest = kind.split("-", 1)
+    if rest.startswith("e2e"):
+        spec = E2EFitSpec(n_epochs_max=epochs, batch_size=8, unimodal=False, opt_kind=opt,
+                          fused_dec_update="fused" in rest, lazy_adam="lazy" in rest)
+        out = fit_e2e(x["init"], x["dec"], x["sen"], x["data"], x["labels"], x["vocab"],
+                      x["hp"], spec, perms=x["perms"], graphs=graphs)
+        return out[0], out[3]
+    spec = LatentFitSpec(n_epochs_max=epochs, batch_size=8, train_decoder=rest != "infer",
+                         unimodal=False, opt_kind=opt, shuffle=rest != "infer",
+                         lazy_adam="lazy" in rest, fused_dec_update="fused" in rest)
+    out = fit_latents(x["init"], x["dec"], x["data"], x["vocab"], x["hp"], spec,
+                      perms=x["perms"] if spec.shuffle else None, graphs=graphs)
+    return out[0], out[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sgd-train", "adam-train-lazy", "adam-infer", "sgd-e2e",
+                                  "adam-e2e-fused", "sgd-e2e-fused-lazy"])
+def test_captured_fit_matches_eager(cuda_device, kind, made_graphs):
+    """Each fit kind on the card at MIN_EPOCHS epochs captured (the default)
+    against eager (``graphs=False``): the fit tolerances (loss rtol 2e-4,
+    embeddings atol 2e-4), and the kernels' launch counts equal: a replay
+    adds the launches its capture recorded.  One epoch fewer runs eagerly
+    by default."""
+    x = _tiny_fit_inputs(cuda_device)
+    out = {}
+    for graphs in (False, True):
+        before = {**K.LAUNCHES, **T.LAUNCHES}
+        emb, losses = _fit(kind, x, graphs)
+        torch.cuda.synchronize()
+        out[graphs] = (emb.cpu(), losses.cpu(),
+                       {k: v - before[k] for k, v in {**K.LAUNCHES, **T.LAUNCHES}.items()})
+    (emb_e, loss_e, n_e), (emb_c, loss_c, n_c) = out[False], out[True]
+    assert [(g.enabled, g.captures, g.replays) for g in made_graphs] == [
+        (False, 0, 0), (True, 1, MIN_EPOCHS - 1)]
+    assert n_c == n_e and n_e["fwd"] == n_e["bwd"] == MIN_EPOCHS * 5
+    assert n_e["adam" if kind.startswith("adam") else "sgd"] == (
+        2 * MIN_EPOCHS * 5 if "fused" in kind else 0)
+    _fit(kind, x, True, epochs=MIN_EPOCHS - 1)
+    assert not made_graphs[-1].enabled
+    np.testing.assert_allclose(loss_c.numpy(), loss_e.numpy(), rtol=2e-4)
+    np.testing.assert_allclose(emb_c.numpy(), emb_e.numpy(), atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_captured_config_axis_chunk_matches_eager(cuda_device, made_graphs):
+    """A sweep chunk of three configs (fused lazy Adam) at MIN_EPOCHS epochs
+    captured and eager: its train and two inference fits each one capture,
+    train losses and embeddings at the fit tolerances, K1 and K2 counts equal."""
+    from mmtpu_torch.config import make_grid
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
+    from mmtpu_torch.sweep.runner import run_chunk
+
+    configs = [dict(c, n_epochs=MIN_EPOCHS, n_sentiment_epochs=2) for c in make_grid()
+               if c["optimizer"] == "adam"][:3]
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(synthesize_dataset(
+        "mosi", n_train=40, n_valid=10, n_test=12, vocab_size=100, embed_dim=16, audio_dim=6,
+        visual_dim=5), pos_mode="shared", pos_dims=dims)
+    res = {}
+    for graphs in (False, True):
+        before = {**K.LAUNCHES, **T.LAUNCHES}
+        r = run_chunk(configs, prep, batch_size=8, device=cuda_device, return_embeddings=True,
+                      fused_dec_update=True, graphs=graphs)
+        res[graphs] = (r, {k: v - before[k] for k, v in {**K.LAUNCHES, **T.LAUNCHES}.items()})
+    (eager, n_e), (captured, n_c) = res[False], res[True]
+    assert [(g.enabled, g.captures, g.replays) for g in made_graphs] == (
+        [(False, 0, 0)] * 3 + [(True, 1, MIN_EPOCHS - 1)] * 3)
+    assert n_c == n_e and n_e["adam"] == 2 * MIN_EPOCHS * 5
+    np.testing.assert_allclose(captured.final_train_loss, eager.final_train_loss, rtol=2e-4)
+    for s in ("train", "valid", "test"):
+        np.testing.assert_allclose(captured.embeddings[s], eager.embeddings[s], atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_captured_server_matches_eager(cuda_device):
+    """The server's graphs per ladder size, raw and stats, against the eager
+    server on the card (atol 1e-5), with a request above the ladder; each
+    form's second request of a size replays."""
+    from mmtpu_torch.models.sentiment import init_sentiment
+    from mmtpu_torch.serve import ClosedFormServer, stats_request
+
+    gen = torch.Generator().manual_seed(5)
+    dec, vocab, req = _closed_form_inputs(gen)
+    senti = init_sentiment(gen, 16, 8, 1)
+    servers = {g: ClosedFormServer(dec, batch_sizes=(8, 16), sentiment_params=senti,
+                                   word_embeddings=vocab, device=cuda_device, graphs=g)
+               for g in (False, True)}
+    np_req = {k: v.numpy() for k, v in req.items()}
+    servers[True].warmup({k: v[:2] for k, v in np_req.items()})
+    assert servers[True]._graphs.captures == 2
+    for r in (np_req, {k: v[:5] for k, v in np_req.items()}, {k: v[:16] for k, v in np_req.items()}):
+        for form in (r, stats_request(r)):
+            for _ in range(2):
+                (lat_c, pred_c), (lat_e, pred_e) = servers[True](form), servers[False](form)
+                np.testing.assert_allclose(lat_c, lat_e, atol=1e-5)
+                np.testing.assert_allclose(pred_c, pred_e, atol=1e-5)
+    assert servers[True]._graphs.replays >= 6
+
+
+@pytest.mark.cuda
+def test_capture_of_a_host_scalar_raises(cuda_device):
+    """K2 refuses a host tensor scalar inside a capture (a graph would
+    freeze it), and the failed capture raises: nothing falls back."""
+    from mmtpu_torch.graphs import GraphCaptureError, Graphs
+
+    gen = torch.Generator().manual_seed(1)
+    w, x, gz = (torch.randn(*s, generator=gen).to(cuda_device)
+                for s in ((12, 37), (8, 12), (8, 37)))
+    graphs = Graphs(cuda_device, True)
+    body = lambda w: T.fused_gemm_sgd_update(w, x, gz, torch.tensor(0.1), 1.0)[0]  # noqa: E731
+    graphs("sgd", body, w)
+    with pytest.raises(GraphCaptureError, match="host tensor scalar"):
+        graphs("sgd", body, w)
+    assert graphs.replays == 0
+    assert torch.ones(3, device=cuda_device).sum().item() == 3.0  # the card still runs
+
+
+@pytest.mark.cuda
+def test_capture_that_reads_the_host_raises(cuda_device, monkeypatch):
+    """A host read planted in a fit's body runs in the eager first epoch
+    and breaks the capture of the second, which raises naming the line."""
+    import mmtpu_torch.train.latents as tl
+    from mmtpu_torch.graphs import GraphCaptureError
+
+    real = tl.batch_neg_log_prob
+
+    def reads(*args, **kw):
+        loss = real(*args, **kw)
+        loss.sum().item()
+        return loss
+
+    monkeypatch.setattr(tl, "batch_neg_log_prob", reads)
+    x = _tiny_fit_inputs(cuda_device)
+    with pytest.raises(GraphCaptureError, match="test_torch_cuda.py"):
+        _fit("sgd-train", x, True)
+    torch.cuda.synchronize()
+    assert torch.ones(3, device=cuda_device).sum().item() == 3.0
