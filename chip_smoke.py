@@ -146,12 +146,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    in every turn) and request ms at 3, 64, 686 and 1500 rows; the chunk's
    and one config's inference fits eager against captured at the grid's
    100 and 200 epochs and at caps on either side of ``MIN_EPOCHS``
-   (``GRAPH_BREAK_EVEN``); then, in a fresh process under
-   ``torch.profiler`` (``--graphs-worker``), each path's host kernel and
-   graph launches per step and the device's idle share over one steady
-   epoch (8 requests), and K1's and K2's kernels named in the trace inside
-   every epoch, replays included, against the launch counters (which a
-   replay adds to by its capture's launches): any difference fails.
+   (``GRAPH_BREAK_EVEN``); phase 4's config's sentiment fit, the K = 32
+   chunk's sentiment phase and phase 15's alternating fit
+   (``GRAPH_SENT_EPOCHS`` epochs; the sentiment fits' validating epochs a
+   graph of their own), eager and captured in turns at the whole-fit gates
+   with their bit-equality, s per steady epoch, capture seconds, peak
+   memory and launches (K1-fwd once per alternating step in every turn,
+   nothing in the sentiment fits), and the chunk's sentiment phase once
+   eager and once captured at the grid's ``GRAPH_SENT_GRID_EPOCHS``; then,
+   in a fresh process under ``torch.profiler`` (``--graphs-worker``), each
+   path's host kernel and graph launches per step and per epoch (a steady
+   captured sentiment or alternating epoch: one graph launch and at most
+   ``GRAPH_EPOCH_HOST_LAUNCHES`` kernels and copies) and the device's idle
+   share over one steady epoch (8 requests), and K1's and K2's kernels
+   named in the trace inside every epoch, replays included, against the
+   launch counters (which a replay adds to by its capture's launches): any
+   difference fails.
 
 Phase 3 also holds K2 with the config axis (``K2_BATCHED_SHAPES``, per-config
 lr, bias corrections and flag, one config at flag 0) to its plain version and
@@ -1546,25 +1556,33 @@ def run_warm_chunk(torch, K, T, tmp: str, dense: dict) -> dict:
             "infer_s": infer_s, "phase_s": chunk.phase_s}
 
 
+def _alternating_inputs(torch, tmp: str) -> tuple:
+    """``(prep, train split, params)`` of phase 15's alternating fit: the
+    bimodal generator at 300 -> audio 74, visual 47, drawn from seed 0, on
+    the CPU."""
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.models.legacy import init_audio_visual_generator
+
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")))
+    keys = ("text_ids", "text_weights", "text_mask", "audio", "audio_mask", "visual",
+            "visual_mask")
+    params = init_audio_visual_generator(torch.Generator().manual_seed(0), prep.embed_dim,
+                                         prep.audio_dim, prep.visual_dim)
+    return prep, {k: prep.splits["train"][k] for k in keys}, params
+
+
 def run_alternating(torch, K, T, tmp: str) -> dict:
     """Phase 15: ``fit_alternating`` on the MOSI train split (the bimodal
     generator at 300 -> audio 74, visual 47; batch 32, ``ALT_EPOCHS``
     epochs) on the card, K1's forward once per step and never its backward,
     against the same fit on the CPU from the same parameters."""
     from mmtpu_torch.convert import to_torch
-    from mmtpu_torch.data.pipeline import prepare_device_data
-    from mmtpu_torch.data.registry import load_dataset
-    from mmtpu_torch.models.legacy import init_audio_visual_generator
     from mmtpu_torch.train.alternating import AlternatingFitSpec, fit_alternating
     from mmtpu_torch.tree import tree_map
 
     dev = torch.device("cuda", 0)
-    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")))
-    keys = ("text_ids", "text_weights", "text_mask", "audio", "audio_mask", "visual",
-            "visual_mask")
-    train = {k: prep.splits["train"][k] for k in keys}
-    params = init_audio_visual_generator(torch.Generator().manual_seed(0), prep.embed_dim,
-                                         prep.audio_dim, prep.visual_dim)
+    prep, train, params = _alternating_inputs(torch, tmp)
     spec = AlternatingFitSpec(n_epochs=ALT_EPOCHS, batch_size=32)
     steps = ALT_EPOCHS * -(-train["audio"].shape[0] // 32)
 
@@ -2341,6 +2359,19 @@ GRAPH_TURNS = (False, True, True, False)
 # K2's Adam and SGD instances share a name stem and are counted together
 GRAPH_TRACED_KERNELS = {"k1_fwd": "angular_fwd_kernel", "k1_bwd": "angular_bwd_kernel",
                         "k2": "dec_update_kernel"}
+# phase 20's sentiment and alternating fits: phase 4's config's sentiment fit
+# (one config), the K = 32 chunk's sentiment phase (phase 10's configs) and
+# phase 15's alternating fit, GRAPH_SENT_EPOCHS epochs each (a validating
+# sentiment epoch is a graph of its own: warmed up at epoch 0, captured at
+# 10, replayed from 20), eager against captured in turns; then the chunk's
+# sentiment phase once eager and once captured at the grid's 400 epochs.
+# Each of their epochs is 41 steps of 32 rows.
+GRAPH_SENT_EPOCHS, GRAPH_SENT_GRID_EPOCHS = 40, 400
+SENT_STEPS_PER_EPOCH = -(-1284 // 32)
+# a steady captured epoch of those fits is one graph launch plus a few
+# copies and kernels around it (the permutation, the loss, and under the
+# config axis the epoch's mask): the most host launches of each kind
+GRAPH_EPOCH_HOST_LAUNCHES = 8
 
 
 class _GraphProbe:
@@ -2446,6 +2477,175 @@ def _graph_chunks(torch, tmp: str, dev) -> dict:
                                               graphs=graphs)) for fused in (False, True)}, configs
 
 
+def _sent_calls(torch, tmp: str, dev) -> dict:
+    """Phase 10's chunk, one training and inference epoch and the grid's
+    GRAPH_SENT_GRID_EPOCHS sentiment epochs, run eagerly with its sentiment
+    phase left out: the arguments that ``build_sweep_parts`` took (less
+    ``graphs``) and those of its ``sent`` call."""
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.sweep import runner
+
+    configs = [dict(c, n_epochs=1, n_sentiment_epochs=GRAPH_SENT_GRID_EPOCHS)
+               for c in sweep_configs()]
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")),
+                               pos_mode="shared", pos_dims=dims)
+    real, rec = runner.build_sweep_parts, {}
+
+    def watched(*args):
+        rec["args"] = args[:5]
+        parts = real(*args)
+        parts["sent"] = lambda *a: rec.setdefault("sent", a)[0]
+        return parts
+
+    runner.build_sweep_parts = watched
+    try:
+        runner.run_chunk(configs, prep, batch_size=64, device=dev, graphs=False)
+    finally:
+        runner.build_sweep_parts = real
+    return rec
+
+
+def _graph_small_fits(torch, tmp: str, dev, sent: dict) -> dict:
+    """Phase 20's sentiment and alternating paths, ``path -> run(graphs,
+    epochs) -> {"loss", "vloss", "params"}`` (the losses where the fit
+    returns them): phase 4's config's sentiment fit on the SIF
+    latents of MOSI's train and valid splits (draws from seed 0), the
+    chunk's sentiment phase through ``build_sweep_parts`` on the arguments
+    ``sent`` recorded (:func:`_sent_calls`), and phase 15's alternating fit."""
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.convert import to_torch
+    from mmtpu_torch.runner import Draws, prepare
+    from mmtpu_torch.sweep import runner
+    from mmtpu_torch.train.alternating import AlternatingFitSpec, fit_alternating
+    from mmtpu_torch.train.sentiment import SentimentFitSpec, fit_sentiment
+    from mmtpu_torch.tree import tree_leaves, tree_map
+
+    move = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+    cfg = ExperimentConfig.from_dict(smoke_config(False))
+    prep = prepare(cfg, os.path.join(tmp, "data"))
+    draws = Draws(0)
+    x, xv, y, yv = (to_torch(d[s], dev) for d in (prep.sif_init, prep.labels)
+                    for s in ("train", "valid"))
+    senti = draws.init_sentiment(prep.embed_dim, cfg.sentiment_hidden_size, 1)
+    perms = draws.sentiment_permutations(x.shape[0], GRAPH_SENT_GRID_EPOCHS)
+
+    def sentiment_fit(graphs, epochs):
+        hp = {"lr": cfg.sentiment_lr, "lr_decay": cfg.lr_decay, "n_epochs": epochs}
+        spec = SentimentFitSpec(n_epochs_max=epochs, early_stopping=cfg.early_stopping)
+        last, _, losses, vlosses = fit_sentiment(move(senti), x, y, xv, yv, hp, spec,
+                                                 perms=perms, graphs=graphs)
+        return {"loss": losses, "vloss": vlosses, "params": tree_leaves(last)}
+
+    statics, *rest = sent["args"]
+    c_senti, train_e, valid_e, s_hp, c_perms = sent["sent"]
+
+    def sentiment_chunk(graphs, epochs):
+        parts = runner.build_sweep_parts(
+            dataclasses.replace(statics, n_sentiment_epochs_max=epochs), *rest, graphs=graphs)
+        hp = dict(s_hp, n_epochs=torch.full_like(s_hp["n_epochs"], epochs))
+        return {"params": tree_leaves(parts["sent"](c_senti, train_e, valid_e, hp,
+                                                    c_perms[:epochs]))}
+
+    _, train, params = _alternating_inputs(torch, tmp)
+    train, vocab = to_torch(train, dev), to_torch(prep.vocab_embeddings, dev)
+
+    def alternating_fit(graphs, epochs):
+        lat, p, losses = fit_alternating(
+            move(params), train, vocab, lr=ALT_LR, word_loss_weight=ALT_WORD_WEIGHT,
+            spec=AlternatingFitSpec(n_epochs=epochs, batch_size=32), graphs=graphs)
+        return {"loss": losses, "params": [lat, *tree_leaves(p)]}
+
+    return {"sentiment_fit": sentiment_fit, "sentiment_chunk": sentiment_chunk,
+            "alternating_fit": alternating_fit}
+
+
+def _compare_outs(captured: list, eager: list) -> dict:
+    """Captured runs against eager ones (``{"loss", "vloss", "params"}``):
+    the largest loss rel and parameter abs differences, and bit-equality."""
+    rec = {"loss_rel": 0.0, "params_abs": 0.0, "bit_equal": True}
+    for c in captured:
+        for e in eager:
+            if "loss" in e:
+                rec["loss_rel"] = max(rec["loss_rel"], (
+                    (c["loss"] - e["loss"]).abs() / e["loss"].abs()).max().item())
+            rec["params_abs"] = max(rec["params_abs"], *(
+                (a - b).abs().max().item() for a, b in zip(c["params"], e["params"])))
+            flat = lambda o: [o[k].cpu() for k in ("loss", "vloss") if k in o] + [  # noqa: E731
+                t.cpu() for t in o["params"]]
+            rec["bit_equal"] &= _same(flat(c), flat(e))
+    return rec
+
+
+def run_graph_small_fits(torch, K, T, tmp: str, dev) -> dict:
+    """Phase 20's sentiment and alternating fits (:func:`_graph_small_fits`),
+    eager against captured in turns at GRAPH_SENT_EPOCHS epochs, then the
+    chunk's sentiment phase eager and captured at GRAPH_SENT_GRID_EPOCHS;
+    saves the chunk's sentiment arguments for the traced worker."""
+    sent = _sent_calls(torch, tmp, dev)
+    c_args = sent["sent"]
+    torch.save({"args": sent["args"], "sent": (*c_args[:4], c_args[4][:4])},
+               os.path.join(tmp, "graphs_sent.pt"))
+    out, paths = {}, _graph_small_fits(torch, tmp, dev, sent)
+    for path, fn in paths.items():
+        turns = [_turn(torch, K, T, dev, lambda g: fn(g, GRAPH_SENT_EPOCHS), g)
+                 for g in GRAPH_TURNS]
+        eager, captured = [turns[0], turns[3]], [turns[1], turns[2]]
+        rec = _compare_outs([t["out"] for t in captured], [t["out"] for t in eager])
+        s_epoch = {m: [_steady(t["probe"].epochs(), m == "captured") for t in ts]
+                   for m, ts in (("eager", eager), ("captured", captured))}
+        made = [t["probe"].made[0] for t in captured]
+        rec.update({"s_per_epoch": s_epoch,
+                    "first_epochs_s": [t["probe"].epochs()[:3] for t in captured],
+                    "capture_s": [g.capture_s for g in made],
+                    "graphs": [(g.captures, g.replays) for g in made],
+                    "peak_gib": {m: [t["peak_gib"] for t in ts]
+                                 for m, ts in (("eager", eager), ("captured", captured))},
+                    "launches": [t["launches"] for t in turns]})
+        log(f"[graphs] {path}, eager / captured in turns ({GRAPH_SENT_EPOCHS} epochs of "
+            f"{SENT_STEPS_PER_EPOCH} steps): s per steady epoch eager "
+            f"{[round(x, 5) for x in s_epoch['eager']]} captured "
+            f"{[round(x, 5) for x in s_epoch['captured']]}; captured first three epochs "
+            f"{[[round(x, 4) for x in f] for f in rec['first_epochs_s']]} s, capture "
+            f"{[round(x, 4) for x in rec['capture_s']]} s, (graphs, replays) {rec['graphs']}; "
+            f"peak GiB {rec['peak_gib']}; launches {rec['launches'][0]} in every turn: "
+            f"{all(t['launches'] == turns[0]['launches'] for t in turns)}; captured against "
+            f"eager: loss max rel {rec['loss_rel']:.3e}, params max abs "
+            f"{rec['params_abs']:.3e}, bit-equal {rec['bit_equal']}")
+        k1 = GRAPH_SENT_EPOCHS * SENT_STEPS_PER_EPOCH if path == "alternating_fit" else 0
+        if any(t["launches"] != {"k1_fwd": k1, "k1_bwd": 0, "k2_adam": 0, "k2_sgd": 0}
+               for t in turns):
+            raise AssertionError(f"{path}: launches {rec['launches']}, expected K1-fwd {k1} "
+                                 f"in every turn and nothing else")
+        if not all(g.captures and g.replays for g in made) or any(
+                t["probe"].made[0].enabled for t in eager):
+            raise AssertionError(f"{path}: the captured turns did not replay, or the eager "
+                                 f"turns captured")
+        if not (rec["loss_rel"] < GRAPH_LOSS_RTOL and rec["params_abs"] < GRAPH_EMB_ATOL):
+            raise AssertionError(f"{path}: the captured fit disagrees with the eager one")
+        out[path] = rec
+
+    grid = lambda g: paths["sentiment_chunk"](g, GRAPH_SENT_GRID_EPOCHS)  # noqa: E731
+    eager, captured = (_turn(torch, K, T, dev, grid, g) for g in (False, True))
+    rec = _compare_outs([captured["out"]], [eager["out"]])
+    rec.update({"s": {"eager": eager["s"], "captured": captured["s"]},
+                "s_per_steady_epoch": {"eager": _steady(eager["probe"].epochs(), False),
+                                       "captured": _steady(captured["probe"].epochs(), True)},
+                "capture_s": captured["probe"].made[0].capture_s,
+                "peak_gib": {"eager": eager["peak_gib"], "captured": captured["peak_gib"]}})
+    log(f"[graphs] sentiment_chunk at the grid's {GRAPH_SENT_GRID_EPOCHS} epochs ("
+        f"{len(sweep_configs())} configs): s eager {eager['s']:.3f} captured "
+        f"{captured['s']:.3f} (capture {rec['capture_s']:.3f} s); s per steady epoch eager "
+        f"{rec['s_per_steady_epoch']['eager']:.5f} captured "
+        f"{rec['s_per_steady_epoch']['captured']:.5f}; peak GiB {rec['peak_gib']}; captured "
+        f"against eager: params max abs {rec['params_abs']:.3e}, bit-equal {rec['bit_equal']}")
+    if not rec["params_abs"] < GRAPH_EMB_ATOL:
+        raise AssertionError("the chunk's captured 400-epoch sentiment phase disagrees")
+    out["sentiment_chunk_grid"] = rec
+    return out
+
+
 def _turn(torch, K, T, dev, fn, graphs):
     """One run of ``fn(graphs)``: its result, launches, seconds, peak memory
     and the Graphs calls it made."""
@@ -2476,9 +2676,10 @@ def _same(a, b) -> bool:
 
 def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
     """Phase 20: the training fit, the e2e fit, the K = 32 chunk (dense and
-    fused) and the server, eager against captured in turns; then their
-    host launches per step and device idle share under ``torch.profiler``
-    in a fresh process (``--graphs-worker``)."""
+    fused), the sentiment and alternating fits and the server, eager
+    against captured in turns; then their host launches per step and
+    device idle share under ``torch.profiler`` in a fresh process
+    (``--graphs-worker``)."""
     import numpy as np
 
     from mmtpu_torch import graphs as G
@@ -2584,6 +2785,7 @@ def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
                                  f"(embeddings outside phase 11's rule in configs {bad})")
         out[path] = rec
 
+    out.update(run_graph_small_fits(torch, K, T, tmp, dev))
     out["break_even"] = _graph_break_even(torch, tmp, dev)
     out["server"] = _graph_server(torch, K, T, tmp, e2e, dev)
     traced = _graph_trace(torch, tmp, e2e)
@@ -2595,9 +2797,19 @@ def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
     for path, t in out["profiled"].items():
         log(f"[graphs] {path}, traced (torch.profiler, one steady epoch or 8 requests): " + "; ".join(
             f"{m} host launches per step: kernels {v['kernel_launches_per_step']:.2f}, graphs "
-            f"{v['graph_launches_per_step']:.3f}, copies and sets {v['copies_per_step']:.2f}; "
-            f"device events {v['device_events']}, busy {v['busy_ms']:.3f} of {v['wall_ms']:.3f} ms"
-            f", idle {100 * v['idle_share']:.1f} %" for m, v in t.items()))
+            f"{v['graph_launches_per_step']:.3f}, copies and sets {v['copies_per_step']:.2f} ("
+            f"per epoch or 8 requests: {v['kernel_launches_per_step'] * v['steps']:.0f}, "
+            f"{v['graph_launches_per_step'] * v['steps']:.0f}, "
+            f"{v['copies_per_step'] * v['steps']:.0f}); device events {v['device_events']}, "
+            f"busy {v['busy_ms']:.3f} of {v['wall_ms']:.3f} ms, idle "
+            f"{100 * v['idle_share']:.1f} %" for m, v in t.items()))
+        if path in ("sentiment_fit", "sentiment_chunk", "alternating_fit"):
+            v = t["captured"]
+            per_epoch = [round(v[f"{k}_per_step"] * v["steps"])
+                         for k in ("graph_launches", "kernel_launches", "copies")]
+            if per_epoch[0] != 1 or max(per_epoch[1:]) > GRAPH_EPOCH_HOST_LAUNCHES:
+                raise AssertionError(f"{path}: a steady captured epoch launched (graphs, kernels, "
+                                     f"copies) {per_epoch} from the host")
         for m, v in t.items():
             c = v.get("launch_check")
             if c is None:  # the server runs no K1 or K2
@@ -2606,8 +2818,10 @@ def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
                 f"{c['calls']} Graphs calls ({c['replays']} replays): traced {c['traced']}, "
                 f"counted {c['counted']}, traced inside replays {c['replay_traced']}; "
                 f"calls that differ: {len(c['mismatched'])}")
-            if c["mismatched"] or c["traced"]["k1_fwd"] == 0 or (m == "captured") != bool(
-                    c["replays"]) or (c["replays"] and c["replay_traced"]["k1_fwd"] == 0):
+            runs_k1 = not path.startswith("sentiment")  # the sentiment fits run no kernel
+            if c["mismatched"] or (m == "captured") != bool(c["replays"]) or runs_k1 and (
+                    c["traced"]["k1_fwd"] == 0
+                    or c["replays"] and c["replay_traced"]["k1_fwd"] == 0):
                 raise AssertionError(f"{path} ({m}): the K1 / K2 kernels in the trace differ from "
                                      f"the launch counters: {c['mismatched'][:3]}")
     return out
@@ -2784,7 +2998,8 @@ def _graph_trace(torch, tmp: str, e2e: dict) -> dict:
 
 def graphs_worker(argv: list) -> int:
     """Phase 20's traced runs (``chip_smoke.py --graphs-worker TMP``): each fit
-    and chunk path eager and captured (3 epochs: the last is a steady replay)
+    and chunk path eager and captured (3 epochs, the sentiment and
+    alternating fits 4: the last is a steady replay)
     and 8 686-row device-resident requests of each form, in one
     ``torch.profiler`` session; per path and mode, the steady epoch's (or
     the requests') host kernel and graph launches per step, device events,
@@ -2809,6 +3024,14 @@ def graphs_worker(argv: list) -> int:
     GRAPH_EPOCHS = GRAPH_SWEEP_EPOCHS = G.MIN_EPOCHS = 3
     paths = _graph_inputs(torch, tmp, dev)
     paths.update(_graph_chunks(torch, tmp, dev)[0])
+    steps = dict.fromkeys(paths, STEPS_PER_EPOCH)
+    # the sentiment and alternating fits at 4 epochs: a sentiment fit's
+    # epoch 0 validates (a key of its own), so its last epoch is the first
+    # steady replay of the training key
+    sent = torch.load(os.path.join(tmp, "graphs_sent.pt"), weights_only=False)
+    for path, fn in _graph_small_fits(torch, tmp, dev, sent).items():
+        paths[path] = lambda g, fn=fn: fn(g, 4)
+        steps[path] = SENT_STEPS_PER_EPOCH
     p = torch.load(os.path.join(tmp, "graphs_server.pt"), weights_only=False)
     prep = prepare(ExperimentConfig.from_dict(smoke_config(True)), os.path.join(tmp, "data"))
     test = {k: prep.splits["test"][k] for k in ("text_ids", "text_weights", "text_gauss",
@@ -2832,7 +3055,7 @@ def graphs_worker(argv: list) -> int:
                 probes[tag] = probe
                 # the fit's or the chunk's train fit: its last epoch is steady
                 windows[tag] = (f"{tag}|0|{probe.calls[0][1]}|{len(probe.epochs()) - 1}",
-                                STEPS_PER_EPOCH)
+                                steps[path])
         for name, f in forms.items():
             for g in (False, True):
                 tag = f"serve_686_{name}|{'captured' if g else 'eager'}"
@@ -2883,7 +3106,8 @@ def graphs_worker(argv: list) -> int:
             "kernel_launches_per_step": sum("LaunchKernel" in n for n in calls) / per,
             "graph_launches_per_step": sum("GraphLaunch" in n for n in calls) / per,
             "copies_per_step": sum("Memcpy" in n or "Memset" in n for n in calls) / per,
-            "device_events": len(inside), "busy_ms": busy / 1e6, "wall_ms": (b - a) / 1e6,
+            "steps": per, "device_events": len(inside), "busy_ms": busy / 1e6,
+            "wall_ms": (b - a) / 1e6,
             "idle_share": 1 - busy / max(b - a, 1)}
     for tag, probe in probes.items():  # K1 and K2 in the trace against the counters
         path, mode = tag.split("|")

@@ -200,12 +200,11 @@ def build_sweep_parts(statics: SweepStatics, labels: Dict[str, torch.Tensor],
     :func:`mmtpu.sweep.runner.build_sweep_parts`).
 
     ``graphs`` (:func:`mmtpu_torch.graphs.use_graphs`) reaches the
-    train and infer fits: on the card each of their epochs is one CUDA graph
-    replay where the fit is long enough to repay its capture (an inference
-    fit's epochs are capped by ``infer_epochs_cap``).  Nothing in them reads
-    the host between epochs (the config
-    axis's epoch masks are device tensors).  ``sent`` and ``score`` run
-    eagerly."""
+    train, infer and sent fits: on the card each of their epochs is one
+    CUDA graph replay where the fit is long enough to repay its capture (an
+    inference fit's epochs are capped by ``infer_epochs_cap``).  Nothing in
+    them reads the host between epochs (the config axis's epoch masks are
+    device tensors).  ``score`` runs eagerly."""
     valid_every = 80 if statics.validation_curve else 0  # valid_niter * 8
     lspec = LatentFitSpec(n_epochs_max=statics.n_epochs_max, batch_size=statics.batch_size,
                           train_decoder=True, unimodal=statics.unimodal,
@@ -265,7 +264,7 @@ def build_sweep_parts(statics: SweepStatics, labels: Dict[str, torch.Tensor],
         if sel is not None:
             train_e = train_e[..., sel, :]
         return fit_sentiment(senti, train_e, y_train, valid_e, labels["valid"], s_hp, sspec,
-                             perms=perms)[0]
+                             perms=perms, graphs=graphs)[0]
 
     @torch.no_grad()
     def score(senti, test_e):

@@ -26,6 +26,7 @@ from mmtpu_torch.models.legacy import apply_audio_visual_generator
 from mmtpu_torch.ops.closed_form import closed_form_latents
 from mmtpu_torch.ops.gaussian import gaussian_logpdf_masked
 from mmtpu_torch.ops.wordprob import word_logprob_angular, word_logprob_dot_prod
+from mmtpu_torch.train.latents import fit_graphs
 from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -67,7 +68,8 @@ def estimate_latents(params, data, sentence_weights, sent_embeddings) -> torch.T
 
 
 def fit_alternating(params, data: Mapping[str, torch.Tensor], vocab_emb: torch.Tensor, lr,
-                    word_loss_weight, spec: AlternatingFitSpec = AlternatingFitSpec()) -> tuple:
+                    word_loss_weight, spec: AlternatingFitSpec = AlternatingFitSpec(),
+                    graphs: bool = True) -> tuple:
     """Alternate closed-form latent estimation with decoder SGD.
 
     ``data`` is the latent fit's dict convention (``text_ids`` or gathered
@@ -75,7 +77,10 @@ def fit_alternating(params, data: Mapping[str, torch.Tensor], vocab_emb: torch.T
     ``visual``, ``visual_mask``) on the device of ``params``.  Each epoch's
     steps take fixed batches of ``spec.batch_size`` rows in order, the last
     padded with row 0 at weight 0; a step's loss is the mean over its real
-    rows, an epoch's the sum of its steps'.
+    rows, an epoch's the sum of its steps'.  ``graphs`` as
+    :func:`mmtpu_torch.train.latents.fit_latents`'s: on the card each epoch
+    of a fit of :data:`mmtpu_torch.graphs.MIN_EPOCHS` epochs or more (its
+    closed form and its steps) is one CUDA graph replay.
 
     Returns ``(final_latents (N, D), params, epoch_losses (n_epochs,))``.
     """
@@ -92,8 +97,7 @@ def fit_alternating(params, data: Mapping[str, torch.Tensor], vocab_emb: torch.T
     valid = torch.cat([torch.ones(n, device=dev), torch.zeros(pad, device=dev)])
     valid = valid.reshape(n_batches, bsz)
 
-    epoch_losses = []
-    for _ in range(spec.n_epochs):
+    def body(params):
         with torch.no_grad():  # the epoch's latents are constants of its steps
             latents = estimate_latents(params, data, data["text_weights"], data["text"])
         batch_losses = []
@@ -106,7 +110,15 @@ def fit_alternating(params, data: Mapping[str, torch.Tensor], vocab_emb: torch.T
             grads = torch.autograd.grad(loss, leaves)
             params = tree_unflatten(params, [p.detach() - lr * g for p, g in zip(leaves, grads)])
             batch_losses.append(loss.detach())
-        epoch_losses.append(torch.sum(torch.stack(batch_losses)))
+        return params, torch.sum(torch.stack(batch_losses))
+
+    # each epoch's closed form and steps: a graph replay where graphs says so
+    run = fit_graphs(graphs, dev, None, spec.n_epochs)
+    params = tree_map(torch.Tensor.detach, params)
+    epoch_losses = []
+    for _ in range(spec.n_epochs):
+        params, loss = run("alternating_epoch", body, params, carry=True)
+        epoch_losses.append(loss)
     with torch.no_grad():
         final = estimate_latents(params, data, data["text_weights"], data["text"])
     return final, params, torch.stack(epoch_losses)

@@ -3,8 +3,10 @@
 
 L1 loss, plain SGD, batch 32 shuffled, validation every 10 epochs, optional
 early stopping with patience 10 and up to 3 lr-decay trials that reload the
-best parameters.  The state machine is kept in tensors and ``torch.where``
-as mmtpu keeps it, so no step waits on the device.  As in mmtpu, the final
+best parameters (the spec's defaults, mmtpu's).  The state machine is kept
+in tensors and ``torch.where`` as mmtpu keeps it, so no step waits on the
+device, and each epoch is one device body: on the card one CUDA graph
+replay, where mmtpu runs the fit as one scan.  As in mmtpu, the final
 evaluation uses the LAST parameters; the best snapshot is returned as well.
 
 Under the sweep's config axis the MLP's parameters and the latents lead with
@@ -21,20 +23,19 @@ from typing import Mapping, Sequence
 import torch
 
 from mmtpu_torch.models.sentiment import apply_sentiment
-from mmtpu_torch.train.latents import epoch_active, take_rows
+from mmtpu_torch.train.latents import epoch_active, epoch_permutation, fit_graphs, take_rows
 from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
-
-
-_BATCH_SIZE = 32  # sentiment_model.py:203
-_VALID_NITER = 10  # sentiment_model.py:77
-_PATIENCE = 10  # sentiment_model.py:86
-_N_TRIALS = 3  # sentiment_model.py:87
 
 
 @dataclasses.dataclass(frozen=True)
 class SentimentFitSpec:
     n_epochs_max: int
+    batch_size: int = 32  # sentiment_model.py:203
     early_stopping: bool = False
+    valid_niter: int = 10  # sentiment_model.py:77
+    patience: int = 10  # sentiment_model.py:86
+    n_trials: int = 3  # sentiment_model.py:87
+    shuffle: bool = True
 
 
 def _batched_index(n: int, bsz: int, perm: torch.Tensor):
@@ -58,7 +59,7 @@ def _l1_batch_mean(pred, y, row_valid, out_dims: int):
     return torch.sum(err * row_valid, dim=-1) / torch.clamp_min(torch.sum(row_valid, dim=-1), 1.0)
 
 
-def eval_sentiment_loss(params, latents, y, bsz: int = _BATCH_SIZE) -> torch.Tensor:
+def eval_sentiment_loss(params, latents, y, bsz: int = 32) -> torch.Tensor:
     """Mean of the batch-mean L1 losses over unshuffled batches (one per
     config under a config axis)."""
     n = latents.shape[-2]
@@ -72,40 +73,41 @@ def eval_sentiment_loss(params, latents, y, bsz: int = _BATCH_SIZE) -> torch.Ten
 
 def fit_sentiment(params, train_latents, train_y, valid_latents, valid_y, hp: Mapping,
                   spec: SentimentFitSpec, generator: torch.Generator | None = None,
-                  perms: Sequence | None = None):
+                  perms: Sequence | None = None, graphs: bool = True):
     """Train the sentiment MLP; returns
     ``(last_params, best_params, train_losses, valid_losses)``.
 
     hp: ``lr`` (sentiment_lr), ``lr_decay`` (floats), ``n_epochs`` (int).
     ``train_losses`` are per-epoch means of batch means; ``valid_losses`` are
-    sampled every 10 epochs and held in between.  Shuffles are drawn from
-    ``generator`` unless ``perms`` (one per epoch) is given.
+    sampled every ``spec.valid_niter`` epochs and held in between.  With
+    ``spec.shuffle`` each epoch's order is drawn from ``generator`` unless
+    ``perms`` (one per epoch) is given.
 
     Under a config axis the latents are ``(K, N, D)``, the parameters lead
     with K, ``hp`` holds ``(K,)`` tensors, each ``perms`` entry is ``(K, N)``
     and the losses are ``(K, n_epochs_max)``.
+
+    ``graphs`` as :func:`mmtpu_torch.train.latents.fit_latents`'s: on the
+    card each epoch of a fit of :data:`mmtpu_torch.graphs.MIN_EPOCHS` epochs
+    or more is one CUDA graph replay (a validating epoch a graph of its own).
     """
     device = train_latents.device
     n = train_latents.shape[-2]
-    bsz = _BATCH_SIZE
+    bsz = spec.batch_size
     out_dims = train_y.ndim - 1
     f32 = dict(dtype=torch.float32, device=device)
     lr = torch.as_tensor(hp["lr"], **f32)
     lr_decay = torch.as_tensor(hp["lr_decay"], **f32)
-    valid_min = torch.tensor(float("inf"), **f32)
-    n_bad = torch.zeros((), dtype=torch.int32, device=device)
-    trials = torch.zeros((), dtype=torch.int32, device=device)
-    stopped = torch.zeros((), dtype=torch.bool, device=device)
+    # the state machine, shaped as lr: one entry per config
+    valid_min = torch.full(lr.shape, float("inf"), **f32)
+    n_bad = torch.zeros(lr.shape, dtype=torch.int32, device=device)
+    trials = torch.zeros(lr.shape, dtype=torch.int32, device=device)
+    stopped = torch.zeros(lr.shape, dtype=torch.bool, device=device)
     params = tree_map(torch.Tensor.detach, params)
-    best = params
-    train_losses, valid_losses = [], []
-    for epoch in range(spec.n_epochs_max):
-        if perms is not None:
-            perm = torch.as_tensor(perms[epoch], dtype=torch.long, device=device)
-        else:
-            perm = torch.randperm(n, generator=generator).to(device)
+
+    def body(carry, perm, in_range, validate: bool):
+        params, best, lr, valid_min, n_bad, trials, stopped = carry
         flat, valid = _batched_index(n, bsz, perm)
-        in_range = epoch_active(epoch, hp)
         active = ~stopped & in_range
         lat_p, y_p = take_rows(train_latents, flat), train_y[flat]
         row_axis = flat.ndim - 1
@@ -126,7 +128,7 @@ def fit_sentiment(params, train_latents, train_y, valid_latents, valid_y, hp: Ma
         train_loss = torch.mean(torch.stack(batch_losses), dim=0)
 
         with torch.no_grad():
-            if in_range is not False and epoch % _VALID_NITER == 0:
+            if validate:
                 do_valid = active
                 vloss = torch.where(do_valid, eval_sentiment_loss(params, valid_latents,
                                                                   valid_y, bsz), valid_min)
@@ -140,16 +142,28 @@ def fit_sentiment(params, train_latents, train_y, valid_latents, valid_y, hp: Ma
                 best = tree_map(lambda bp, p: torch.where(per_config(take_best, p.ndim), p, bp),
                                 best, params)
                 n_bad2 = torch.where(do_valid, torch.where(is_better, 0, n_bad + 1), n_bad)
-                exhausted = n_bad2 >= _PATIENCE
+                exhausted = n_bad2 >= spec.patience
                 trials = torch.where(do_valid & exhausted, trials + 1, trials)
-                retry = do_valid & exhausted & (trials < _N_TRIALS)
-                stopped = stopped | (do_valid & exhausted & (trials >= _N_TRIALS))
+                retry = do_valid & exhausted & (trials < spec.n_trials)
+                stopped = stopped | (do_valid & exhausted & (trials >= spec.n_trials))
                 params = tree_map(lambda p, bp: torch.where(per_config(retry, p.ndim), bp, p),
                                   params, best)
                 lr = torch.where(retry, lr * lr_decay, lr)
                 n_bad = torch.where(retry, 0, n_bad2).to(torch.int32)
-            valid_min = valid_min2
+        return (params, best, lr, valid_min2, n_bad, trials, stopped), (train_loss, vloss)
+
+    # the host part of each epoch (its order, whether it is in range and
+    # validates; mmtpu's lax.cond), then its device body: a graph replay
+    # where graphs says so
+    run = fit_graphs(graphs, device, None, spec.n_epochs_max)
+    carry = (params, params, lr, valid_min, n_bad, trials, stopped)
+    train_losses, valid_losses = [], []
+    for epoch in range(spec.n_epochs_max):
+        perm = epoch_permutation(epoch, n, spec, device, generator, perms)
+        in_range = epoch_active(epoch, hp)
+        validate = in_range is not False and epoch % spec.valid_niter == 0
+        carry, (train_loss, vloss) = run("sentiment_epoch", body, carry, perm, in_range,
+                                         validate, carry=True)
         train_losses.append(train_loss)
         valid_losses.append(vloss)
-    return params, best, torch.stack(train_losses, dim=-1), torch.stack(valid_losses, dim=-1)
-
+    return (*carry[:2], torch.stack(train_losses, dim=-1), torch.stack(valid_losses, dim=-1))

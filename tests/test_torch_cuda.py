@@ -544,8 +544,9 @@ def test_captured_fit_matches_eager(cuda_device, kind, made_graphs):
 @pytest.mark.cuda
 def test_captured_config_axis_chunk_matches_eager(cuda_device, made_graphs):
     """A sweep chunk of three configs (fused lazy Adam) at MIN_EPOCHS epochs
-    captured and eager: its train and two inference fits each one capture,
-    train losses and embeddings at the fit tolerances, K1 and K2 counts equal."""
+    captured and eager: its train and two inference fits each one capture
+    (its 2-epoch sentiment fit runs eagerly), train losses and embeddings
+    at the fit tolerances, K1 and K2 counts equal."""
     from mmtpu_torch.config import make_grid
     from mmtpu_torch.data.pipeline import prepare_device_data
     from mmtpu_torch.data.synthetic import synthesize_dataset
@@ -565,11 +566,77 @@ def test_captured_config_axis_chunk_matches_eager(cuda_device, made_graphs):
         res[graphs] = (r, {k: v - before[k] for k, v in {**K.LAUNCHES, **T.LAUNCHES}.items()})
     (eager, n_e), (captured, n_c) = res[False], res[True]
     assert [(g.enabled, g.captures, g.replays) for g in made_graphs] == (
-        [(False, 0, 0)] * 3 + [(True, 1, MIN_EPOCHS - 1)] * 3)
+        [(False, 0, 0)] * 4 + [(True, 1, MIN_EPOCHS - 1)] * 3 + [(False, 0, 0)])
     assert n_c == n_e and n_e["adam"] == 2 * MIN_EPOCHS * 5
     np.testing.assert_allclose(captured.final_train_loss, eager.final_train_loss, rtol=2e-4)
     for s in ("train", "valid", "test"):
         np.testing.assert_allclose(captured.embeddings[s], eager.embeddings[s], atol=2e-4)
+
+
+def _small_fit(kind: str, dev, graphs) -> tuple:
+    """A small sentiment fit (one config or K = 3, early stopping with
+    reloads and a stop inside MIN_EPOCHS * 2 epochs) or alternating fit
+    (MIN_EPOCHS epochs) on ``dev``; its tensors."""
+    from mmtpu_torch.models.legacy import init_audio_visual_generator
+    from mmtpu_torch.models.sentiment import init_sentiment
+    from mmtpu_torch.train.alternating import AlternatingFitSpec, fit_alternating
+    from mmtpu_torch.train.sentiment import SentimentFitSpec, fit_sentiment
+    from mmtpu_torch.tree import tree_leaves, tree_map
+
+    gen = torch.Generator().manual_seed(7)
+    move = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+    if kind == "alternating":
+        _, vocab, req = _closed_form_inputs(gen)
+        data = {"text_ids": req["text_ids"], "text_weights": req["text_weights"],
+                "text_mask": torch.ones(37, 6), "audio": req["audio"],
+                "audio_mask": torch.ones(37, 6, 5), "visual": req["visual"],
+                "visual_mask": torch.ones(37, 6, 4)}
+        params = init_audio_visual_generator(gen, 16, 5, 4)
+        lat, params, losses = fit_alternating(
+            move(params), move(data), vocab.to(dev), lr=1e-2, word_loss_weight=0.3,
+            spec=AlternatingFitSpec(n_epochs=MIN_EPOCHS, batch_size=8), graphs=graphs)
+        return (lat, losses, *tree_leaves(params))
+    k = 3 if kind == "sentiment-k3" else None
+    x, xv = torch.randn(70, 16, generator=gen), torch.randn(20, 16, generator=gen)
+    y, yv = torch.randn(70, generator=gen), torch.randn(20, generator=gen)
+    params = init_sentiment(gen, 16, 8, 1)
+    hp = {"lr": 0.05, "lr_decay": 0.5, "n_epochs": 2 * MIN_EPOCHS - 3}
+    if k:
+        params = tree_map(lambda t: torch.stack([t, 0.5 * t, 2 * t]), params)
+        x, xv = x.expand(k, -1, -1), xv.expand(k, -1, -1)
+        hp = {"lr": torch.tensor([0.0, 0.05, 0.02], device=dev),
+              "lr_decay": torch.tensor([0.5, 0.3, 0.5], device=dev),
+              "n_epochs": torch.tensor([2 * MIN_EPOCHS, MIN_EPOCHS, MIN_EPOCHS // 2], device=dev)}
+    spec = SentimentFitSpec(n_epochs_max=2 * MIN_EPOCHS, early_stopping=True, valid_niter=3,
+                            patience=2)
+    perms = [torch.randperm(70, generator=gen).expand(*(k,) if k else (), 70)
+             for _ in range(spec.n_epochs_max)]
+    last, best, losses, vlosses = fit_sentiment(
+        move(params), x.to(dev), y.to(dev), xv.to(dev), yv.to(dev), hp, spec,
+        perms=[p.to(dev) for p in perms], graphs=graphs)
+    return (losses, vlosses, *tree_leaves(last), *tree_leaves(best))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sentiment", "sentiment-k3", "alternating"])
+def test_captured_sentiment_and_alternating_fits_are_eager(cuda_device, kind, made_graphs):
+    """The sentiment fit (one config and the config axis: training,
+    validating and inactive epochs, reloads and stops inside replays) and
+    the alternating fit captured on the card: bit for bit the eager fit,
+    with equal K1 counts (the alternating fit's forward once per step, each
+    replay adding its capture's launches)."""
+    out = {}
+    for graphs in (False, True):
+        before = dict(K.LAUNCHES)
+        res = _small_fit(kind, cuda_device, graphs)
+        torch.cuda.synchronize()
+        out[graphs] = ([t.cpu() for t in res], {k: K.LAUNCHES[k] - before[k] for k in before})
+    (eager, n_e), (captured, n_c) = out[False], out[True]
+    assert [(g.enabled, g.captures > 0) for g in made_graphs] == [(False, False), (True, True)]
+    assert n_c == n_e == ({"fwd": MIN_EPOCHS * 5, "bwd": 0} if kind == "alternating"
+                          else {"fwd": 0, "bwd": 0})
+    for c, e in zip(captured, eager):
+        assert torch.equal(c, e)
 
 
 @pytest.mark.cuda

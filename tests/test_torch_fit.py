@@ -168,19 +168,16 @@ def test_shuffle_draws_from_generator(rng):
     assert not torch.equal(fit(0), fit(1))
 
 
-@pytest.mark.parametrize("early_stopping,n_out,lr", [(False, 1, 0.05), (True, 1, 0.0),
-                                                     (True, 3, 0.05)])
-def test_sentiment_fit_matches_mmtpu(rng, early_stopping, n_out, lr):
-    """The sentiment fit's state machine: validation every 10 epochs; with
-    early stopping, patience 10, lr decay and reload of the best params over
-    3 trials.  With lr 0 every validation after the first fails, so all
-    three trials run out and the fit stops; at lr 0.05 the 3-output fit
-    overfits its random labels and reloads its best parameters twice."""
+def sentiment_fits(seed, early_stopping, n_out, lr, epochs=320, **spec_fields):
+    """mmtpu's jitted sentiment fit and the port's on the same draws: ``(got,
+    want)``.  ``spec_fields`` are further fields of both specs; with
+    ``shuffle`` the port takes the permutations JAX drew."""
     from mmtpu.models.sentiment import init_sentiment
     from mmtpu.train import sentiment as js
     from mmtpu_torch.train import sentiment as ts
 
-    n, nv, d, epochs = 40, 12, 6, 320
+    rng = np.random.default_rng(seed)
+    n, nv, d = 40, 12, 6
     x = rng.standard_normal((n, d)).astype(np.float32)
     xv = rng.standard_normal((nv, d)).astype(np.float32)
     shape = (n,) if n_out == 1 else (n, n_out)
@@ -192,17 +189,43 @@ def test_sentiment_fit_matches_mmtpu(rng, early_stopping, n_out, lr):
     want = jax.jit(js.fit_sentiment, static_argnums=(7,))(
         key, params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(xv), jnp.asarray(yv),
         {k: jnp.asarray(v) for k, v in hp.items()},
-        js.SentimentFitSpec(n_epochs_max=epochs, early_stopping=early_stopping))
+        js.SentimentFitSpec(n_epochs_max=epochs, early_stopping=early_stopping, **spec_fields))
     perms = []
     for _ in range(epochs):
         key, sub = jax.random.split(key)
         perms.append(np.array(jax.random.permutation(sub, n)))
+    spec = ts.SentimentFitSpec(n_epochs_max=epochs, early_stopping=early_stopping,
+                               **spec_fields)
     got = ts.fit_sentiment(to_torch(params), torch.tensor(x), torch.tensor(y), torch.tensor(xv),
-                           torch.tensor(yv), hp, ts.SentimentFitSpec(
-                               n_epochs_max=epochs, early_stopping=early_stopping),
-                           perms=perms)
+                           torch.tensor(yv), hp, spec, perms=perms if spec.shuffle else None)
+    return got, want
+
+
+def assert_sentiment_close(got, want):
+    """Parameters atol 1e-4, losses rtol 1e-4 / atol 1e-5."""
     for g, w in zip(got[:2], want[:2]):
         jax.tree.map(lambda a, b: np.testing.assert_allclose(a, np.asarray(b), atol=1e-4),
                      to_numpy(g), w)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("early_stopping,n_out,lr", [(False, 1, 0.05), (True, 1, 0.0),
+                                                     (True, 3, 0.05)])
+def test_sentiment_fit_matches_mmtpu(early_stopping, n_out, lr):
+    """The sentiment fit's state machine: validation every 10 epochs; with
+    early stopping, patience 10, lr decay and reload of the best params over
+    3 trials.  With lr 0 every validation after the first fails, so all
+    three trials run out and the fit stops; at lr 0.05 the 3-output fit
+    overfits its random labels and reloads its best parameters twice."""
+    assert_sentiment_close(*sentiment_fits(0, early_stopping, n_out, lr))
+
+
+def test_sentiment_spec_fields_match_mmtpu():
+    """The spec's fields beyond the defaults, as mmtpu reads them: batch 16,
+    no shuffle, validation every 3 epochs, patience 2 and 2 trials (the fit
+    reloads, then stops, within its 60 epochs)."""
+    got, want = sentiment_fits(1, True, 1, 0.05, epochs=60, batch_size=16, shuffle=False,
+                               valid_niter=3, patience=2, n_trials=2)
+    assert_sentiment_close(got, want)
+    assert np.isfinite(got[3].numpy()).all()

@@ -15,11 +15,14 @@ and making a tensor from host data on a device (``torch.tensor`` /
 Cases: the latent fit with SGD, dense Adam and lazy Adam, the inference fit
 (its inactive epochs a graph of their own), the fused decoder update (K2's
 plain version), the validation curve's refits, the config axis (dense and
-fused lazy Adam), the e2e fit (dense, fused, lazy) and the server's raw and
-statistics bodies.  Each must give the eager fit's results bit for bit
-(the host part and the replayed body against the same code run directly),
-and one case is also held to mmtpu at the fit tolerances of
-tests/test_torch_fit.py.  A planted host read in a fit's body must fail.
+fused lazy Adam), the e2e fit (dense, fused, lazy), the sentiment fit (early
+stopping through reloads and stop, inactive and validating epochs, the
+config axis), the alternating fit (K1's plain calls counted as launches)
+and the server's raw and statistics bodies.  Each must give the eager fit's
+results bit for bit (the host part and the replayed body against the same
+code run directly), and one training fit and one sentiment fit are also
+held to mmtpu at the tolerances of tests/test_torch_fit.py.  A planted host
+read in a fit's body must fail.
 """
 
 import numpy as np
@@ -30,17 +33,22 @@ from torch.overrides import TorchFunctionMode
 import mmtpu_torch.serve as tserve
 import mmtpu_torch.graphs as tg
 import mmtpu_torch.train.latents as tl
+import mmtpu_torch.train.sentiment as ts
 from mmtpu_torch.convert import to_torch
 from mmtpu_torch.data import prepare_device_data, synthesize_dataset
 from mmtpu_torch.kernels import angular as tk1
 from mmtpu_torch.kernels.build import Tickets
 from mmtpu_torch.models.decoder import NORM_CODES, init_decoder
+from mmtpu_torch.models.legacy import init_audio_visual_generator
 from mmtpu_torch.models.sentiment import init_sentiment
 from mmtpu_torch.serve import ClosedFormServer, stats_request
 from mmtpu_torch.train import e2e as te2e
+from mmtpu_torch.train.alternating import AlternatingFitSpec, fit_alternating
 from mmtpu_torch.train.optim import _B1, _B2, _gated, lazy_adam_catch_up, lazy_adam_coeffs
 from mmtpu_torch.tree import tree_map
-from tests.test_torch_fit import A, VIS, _assert_close, _data, _run_both
+from tests.test_torch_fit import (A, VIS, _assert_close, _data, _run_both,
+                                  assert_sentiment_close, sentiment_fits)
+from tests.test_torch_legacy import _alt_data
 from tests.test_torch_serve import LADDER, _request, _servers
 
 
@@ -112,7 +120,8 @@ class ReplayOnCpu(tg.Graphs):
 @pytest.fixture
 def replayed(monkeypatch):
     """Fits and servers made in the test run on :class:`ReplayOnCpu`; yields
-    its instances."""
+    its instances.  The sentiment and alternating fits make theirs through
+    ``tl.fit_graphs``, so patching ``tl.Graphs`` reaches them too."""
     ReplayOnCpu.made = []
     monkeypatch.setattr(tl, "Graphs", ReplayOnCpu)
     monkeypatch.setattr(tserve, "Graphs", ReplayOnCpu)
@@ -263,6 +272,101 @@ def test_replayed_e2e_fit_is_the_eager_fit(spec_args, replayed):
         want = run()
     _assert_bit_equal(run(), want)
     assert (replayed[0].captures, replayed[0].replays) == (1, 2)
+
+
+def _sentiment_inputs(case):
+    """The sentiment fit's inputs for ``case`` at tests/test_torch_fit.py's
+    sizes (40 rows, width 6): ``(args, hp, spec, perms)``."""
+    rng = np.random.default_rng(5)
+    n, nv, d = 40, 12, 6
+    n_out = 3 if case == "reload" else 1
+    y, yv = (torch.tensor(rng.standard_normal((m, n_out) if n_out > 1 else (m,))
+                          .astype(np.float32)) for m in (n, nv))
+    x, xv = (torch.tensor(rng.standard_normal((m, d)).astype(np.float32)) for m in (n, nv))
+    gen = torch.Generator().manual_seed(5)
+    if case != "config_axis":
+        params = init_sentiment(gen, d, 5, n_out)
+        hp = {"lr": 0.0 if case == "stop" else 0.05, "lr_decay": 0.5, "n_epochs": 313}
+        spec = ts.SentimentFitSpec(n_epochs_max=320, early_stopping=True)
+        perms = [rng.permutation(n) for _ in range(spec.n_epochs_max)]
+        return (params, x, y, xv, yv), hp, spec, perms
+    k = 3
+    params = tree_map(lambda *xs: torch.stack(xs), *[init_sentiment(gen, d, 5, 1)
+                                                   for _ in range(k)])
+    hp = {"lr": torch.tensor([0.0, 0.05, 0.02]), "lr_decay": torch.tensor([0.5, 0.3, 0.5]),
+          "n_epochs": torch.tensor([60, 40, 25])}
+    spec = ts.SentimentFitSpec(n_epochs_max=60, early_stopping=True, valid_niter=3, patience=2)
+    perms = [torch.tensor(np.stack([rng.permutation(n) for _ in range(k)]))
+             for _ in range(spec.n_epochs_max)]
+    return (params, x.expand(k, n, d), y, xv.expand(k, nv, d), yv), hp, spec, perms
+
+
+@pytest.mark.parametrize("case", ["stop", "reload", "config_axis"])
+def test_replayed_sentiment_fit_is_the_eager_fit(case, replayed):
+    """One config at lr 0 (every trial runs out and the fit stops inside
+    the validating key's replays), three outputs at lr 0.05 (best reloaded),
+    and the config axis with its own epoch count, lr and retries per config:
+    replayed bit for bit as eager.  Keys: training, validating and (one
+    config) inactive epochs, each warmed up, captured, then replayed."""
+    args, hp, spec, perms = _sentiment_inputs(case)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tl, "Graphs", tg.Graphs)
+        want = ts.fit_sentiment(*args, hp, spec, perms=perms)
+    got = ts.fit_sentiment(*args, hp, spec, perms=perms)
+    _assert_bit_equal(got, want)
+    keys = 2 if case == "config_axis" else 3
+    assert (replayed[0].captures, replayed[0].replays) == (keys, spec.n_epochs_max - keys)
+
+
+def test_replayed_sentiment_fit_matches_mmtpu(replayed):
+    """The replayed sentiment fit (three outputs, early stopping with
+    reloads) against mmtpu's jitted fit at tests/test_torch_fit.py's
+    tolerances."""
+    assert_sentiment_close(*sentiment_fits(0, True, 3, 0.05))
+    assert (replayed[0].captures, replayed[0].replays) == (3, 317)
+
+
+def test_replayed_alternating_fit_is_the_eager_fit(replayed, monkeypatch):
+    """Each epoch's closed form and steps replayed: bit for bit the eager
+    fit, and K1's calls (its plain version here, counted as launches) equal:
+    each replay adds the calls its capture recorded."""
+    real = tk1.angular_partition_ref
+
+    def counted(*args):
+        tk1.LAUNCHES["fwd"] += 1
+        return real(*args)
+
+    monkeypatch.setattr(tk1, "angular_partition_ref", counted)
+    vocab, data = _alt_data()
+    params = init_audio_visual_generator(torch.Generator().manual_seed(2), 8, 4, 3)
+    spec = AlternatingFitSpec(n_epochs=4, batch_size=8)
+    runs, calls = [], []
+    for graphs in (tg.Graphs, ReplayOnCpu):
+        before = dict(tk1.LAUNCHES)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tl, "Graphs", graphs)
+            runs.append(fit_alternating(params, to_torch(data), to_torch(vocab), lr=1e-2,
+                                        word_loss_weight=0.3, spec=spec))
+        calls.append({k: tk1.LAUNCHES[k] - before[k] for k in before})
+        tk1.LAUNCHES.update(before)
+    _assert_bit_equal(runs[1], runs[0])
+    assert calls[0] == calls[1] == {"fwd": 4 * 2, "bwd": 0}
+    assert (replayed[0].captures, replayed[0].replays) == (1, 3)
+
+
+def test_planted_host_read_in_the_sentiment_body_fails(replayed, monkeypatch):
+    """A ``.item()`` planted in the sentiment MLP's forward is caught in the body."""
+    real = ts.apply_sentiment
+
+    def reads(params, x):
+        out = real(params, x)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(ts, "apply_sentiment", reads)
+    args, hp, spec, perms = _sentiment_inputs("stop")
+    with pytest.raises(HostRead, match="item"):
+        ts.fit_sentiment(*args, hp, spec, perms=perms)
 
 
 def test_replayed_fit_matches_mmtpu(replayed):
