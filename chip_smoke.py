@@ -143,9 +143,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    to phase 11's rule, the server to ``SERVE_ATOL``, with their
    bit-equality reported; s per steady epoch, utt/s (config·utt·epochs/s
    for the chunks), capture seconds, peak memory, K1 / K2 launches (equal
-   in every turn) and request ms at 3, 64, 686 and 1500 rows; the chunk's
+   in every turn) and request ms at 3, 64, 686 and 1500 rows; a bucket of
+   ``GRAPH_SWEEP_CHUNKS`` chunks of ``GRAPH_SWEEP_K`` configs of the grid
+   (``GRAPH_SWEEP_EPOCHS`` epochs and sentiment epochs) through
+   ``run_sweep``, one store of graphs
+   for the bucket and one chunk deep, against fresh ``run_chunk`` calls:
+   each chunk after the first warms up and captures nothing, and equals
+   its chunk alone bit for bit with the same K1 / K2 launches, with
+   ``done_at_s`` per chunk and the sweep's wall time against the chunks'
+   alone; the chunk's
    and one config's inference fits eager against captured at the grid's
-   100 and 200 epochs and at caps on either side of ``MIN_EPOCHS``
+   100 epochs and at caps on either side of ``MIN_EPOCHS``
    (``GRAPH_BREAK_EVEN``); phase 4's config's sentiment fit, the K = 32
    chunk's sentiment phase and phase 15's alternating fit
    (``GRAPH_SENT_EPOCHS`` epochs; the sentiment fits' validating epochs a
@@ -2347,11 +2355,19 @@ def check_small_agreement(torch) -> None:
 GRAPH_EPOCHS = GRAPH_SWEEP_EPOCHS = 20
 # the sweep's inference fits eager against captured by epoch count, for
 # graphs.MIN_EPOCHS: (label, "chunk" (the K = 32 dense chunk's) or "alone"
-# (one config's), the chunk's n_epochs, infer_epochs_cap); the grid's 100 and
-# 200 epochs, and caps below and at the threshold
-GRAPH_BREAK_EVEN = (("chunk_e100", "chunk", 100, 0), ("chunk_e200", "chunk", 200, 0),
-                    ("chunk_cap10", "chunk", 100, 10), ("chunk_cap20", "chunk", 200, 20),
-                    ("alone_e100", "alone", 100, 0), ("alone_cap5", "alone", 100, 5))
+# (one config's), the chunk's n_epochs, infer_epochs_cap); the grid's 100
+# epochs, and caps below and at the threshold
+GRAPH_BREAK_EVEN = (("chunk_e100", "chunk", 100, 0), ("chunk_cap10", "chunk", 100, 10),
+                    ("chunk_cap20", "chunk", 200, 20), ("alone_e100", "alone", 100, 0),
+                    ("alone_cap5", "alone", 100, 5))
+# phase 20's sweep bucket: GRAPH_SWEEP_CHUNKS chunks of GRAPH_SWEEP_K configs
+# of the grid's Adam / 100-epoch bucket at GRAPH_SWEEP_EPOCHS train and
+# sentiment epochs, through run_sweep (one store of graphs for the bucket,
+# one chunk deep) and as fresh run_chunk calls.  Half the grid's chunk width
+# keeps the script inside its time (at K = 32 the check took 35 s of a
+# 645 s run on an H100, PERF.md §6); each chunk still holds both hidden
+# sizes and both positional dims, so its statics are the sweep's
+GRAPH_SWEEP_CHUNKS, GRAPH_SWEEP_K = 3, 16
 GRAPH_LOSS_RTOL, GRAPH_EMB_ATOL = 2e-4, 2e-4
 GRAPH_TURNS = (False, True, True, False)
 # the device kernels of K1 and K2 by name in a torch.profiler trace (CUPTI
@@ -2785,6 +2801,7 @@ def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
                                  f"(embeddings outside phase 11's rule in configs {bad})")
         out[path] = rec
 
+    out["sweep"] = _graph_sweep(torch, K, T, tmp, dev)
     out.update(run_graph_small_fits(torch, K, T, tmp, dev))
     out["break_even"] = _graph_break_even(torch, tmp, dev)
     out["server"] = _graph_server(torch, K, T, tmp, e2e, dev)
@@ -2825,6 +2842,93 @@ def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
                 raise AssertionError(f"{path} ({m}): the K1 / K2 kernels in the trace differ from "
                                      f"the launch counters: {c['mismatched'][:3]}")
     return out
+
+
+def _graph_sweep(torch, K, T, tmp: str, dev) -> dict:
+    """Phase 20's sweep bucket (``GRAPH_SWEEP_CHUNKS`` chunks of
+    ``GRAPH_SWEEP_K`` configs), once through
+    ``run_sweep`` and once as fresh ``run_chunk`` calls, one per chunk.  Per
+    chunk: bit-equality, the bucket store's warm-ups, captures and replays,
+    K1 / K2 launches (the sweep's counted around each chunk's queue step,
+    where its fits launch and replay) and ``done_at_s``; the sweep's wall
+    time against the chunks' alone.  Fails unless every chunk after the
+    first warms up and captures nothing, equals its chunk alone bit for bit
+    and launches what it launches alone."""
+    import numpy as np
+
+    from mmtpu_torch.config import make_grid
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.registry import load_dataset
+    from mmtpu_torch.sweep import runner
+
+    bucket = [c for c in make_grid() if c["optimizer"] == "adam" and c["n_epochs"] == 100]
+    configs = [dict(c, n_epochs=GRAPH_SWEEP_EPOCHS, n_sentiment_epochs=GRAPH_SWEEP_EPOCHS)
+               for c in bucket[:GRAPH_SWEEP_CHUNKS * GRAPH_SWEEP_K]]
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(load_dataset("mosi", data_dir=os.path.join(tmp, "data")),
+                               pos_mode="shared", pos_dims=dims)
+    queue, swept_launches = runner._queue, []
+
+    def counted(*args, **kw):
+        before = _read_launches(K, T)
+        out = queue(*args, **kw)
+        swept_launches.append({k: v - before[k] for k, v in _read_launches(K, T).items()})
+        return out
+
+    torch.cuda.synchronize(dev)
+    _reset_launches(K, T)
+    runner._queue = counted
+    try:
+        t0 = time.perf_counter()
+        swept = runner.run_sweep(configs, prep, batch_size=64, chunk_size=GRAPH_SWEEP_K,
+                                 return_embeddings=True, verbose=False, device=dev)
+        torch.cuda.synchronize(dev)
+        sweep_s = time.perf_counter() - t0
+    finally:
+        runner._queue = queue
+    sweep_launches = _read_launches(K, T)
+    alone, alone_s, alone_launches = [], [], []
+    for i in range(GRAPH_SWEEP_CHUNKS):
+        _reset_launches(K, T)
+        t0 = time.perf_counter()
+        rows = slice(i * GRAPH_SWEEP_K, (i + 1) * GRAPH_SWEEP_K)
+        alone.append(runner.run_chunk(configs[rows], prep, batch_size=64,
+                                      return_embeddings=True, device=dev))
+        torch.cuda.synchronize(dev)
+        alone_s.append(time.perf_counter() - t0)
+        alone_launches.append(_read_launches(K, T))
+    chunks = []
+    for i, (stats, want) in enumerate(zip(swept.chunk_stats, alone)):
+        rows = slice(i * GRAPH_SWEEP_K, (i + 1) * GRAPH_SWEEP_K)
+        bit_equal = _same([swept.final_train_loss[rows]]
+                          + [swept.metrics[m][rows] for m in sorted(want.metrics)]
+                          + [swept.embeddings[s][rows] for s in ("train", "valid", "test")],
+                          [want.final_train_loss] + [want.metrics[m] for m in sorted(want.metrics)]
+                          + [want.embeddings[s] for s in ("train", "valid", "test")])
+        chunks.append({"chunk": stats["chunk"], "bit_equal": bit_equal, **stats["graphs"],
+                       "launches": swept_launches[i], "launches_alone": alone_launches[i],
+                       "done_at_s": stats["done_at_s"], "alone_s": alone_s[i],
+                       "diverged": int(want.diverged.sum())})
+    rec = {"chunks": chunks, "sweep_s": sweep_s, "sweep_wall_time_s": swept.wall_time_s,
+           "alone_sum_s": sum(alone_s), "launches": sweep_launches}
+    for c in chunks:
+        log(f"[graphs] sweep bucket, chunk {c['chunk']} ({GRAPH_SWEEP_K} configs, "
+            f"{GRAPH_SWEEP_EPOCHS} epochs and sentiment epochs): bit-equal to the chunk alone "
+            f"{c['bit_equal']}; warm-ups {c['warmups']}, captures {c['captures']}, replays "
+            f"{c['replays']}; launches {c['launches']}, alone {c['launches_alone']}; done at "
+            f"{c['done_at_s']} s; alone {c['alone_s']:.3f} s; diverged configs {c['diverged']}")
+    log(f"[graphs] sweep bucket of {GRAPH_SWEEP_CHUNKS} chunks: run_sweep {sweep_s:.3f} s "
+        f"(its wall_time_s {swept.wall_time_s:.3f}) against the chunks alone "
+        f"{[round(x, 3) for x in alone_s]} s, summed {sum(alone_s):.3f} s; launches "
+        f"{sweep_launches}")
+    first, later = chunks[0], chunks[1:]
+    if not first["captures"] or any(c["warmups"] or c["captures"] or not c["replays"]
+                                    for c in later):
+        raise AssertionError(f"sweep bucket: a chunk after the first warmed up or captured, "
+                             f"or the first captured nothing: {chunks}")
+    if not all(c["bit_equal"] and c["launches"] == c["launches_alone"] for c in chunks):
+        raise AssertionError(f"sweep bucket: a chunk differs from the chunk alone: {chunks}")
+    return rec
 
 
 def _infer_calls(torch, run) -> dict:

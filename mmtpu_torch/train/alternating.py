@@ -22,11 +22,11 @@ from typing import Mapping
 
 import torch
 
+from mmtpu_torch.graphs import Graphs, fit_graphs, fit_result
 from mmtpu_torch.models.legacy import apply_audio_visual_generator
 from mmtpu_torch.ops.closed_form import closed_form_latents
 from mmtpu_torch.ops.gaussian import gaussian_logpdf_masked
 from mmtpu_torch.ops.wordprob import word_logprob_angular, word_logprob_dot_prod
-from mmtpu_torch.train.latents import fit_graphs
 from mmtpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -69,7 +69,7 @@ def estimate_latents(params, data, sentence_weights, sent_embeddings) -> torch.T
 
 def fit_alternating(params, data: Mapping[str, torch.Tensor], vocab_emb: torch.Tensor, lr,
                     word_loss_weight, spec: AlternatingFitSpec = AlternatingFitSpec(),
-                    graphs: bool = True) -> tuple:
+                    graphs: bool | Graphs = True) -> tuple:
     """Alternate closed-form latent estimation with decoder SGD.
 
     ``data`` is the latent fit's dict convention (``text_ids`` or gathered
@@ -80,7 +80,8 @@ def fit_alternating(params, data: Mapping[str, torch.Tensor], vocab_emb: torch.T
     rows, an epoch's the sum of its steps'.  ``graphs`` as
     :func:`mmtpu_torch.train.latents.fit_latents`'s: on the card each epoch
     of a fit of :data:`mmtpu_torch.graphs.MIN_EPOCHS` epochs or more (its
-    closed form and its steps) is one CUDA graph replay.
+    closed form and its steps) is one CUDA graph replay, and a caller's
+    store is shared with the fits run through it.
 
     Returns ``(final_latents (N, D), params, epoch_losses (n_epochs,))``.
     """
@@ -97,7 +98,9 @@ def fit_alternating(params, data: Mapping[str, torch.Tensor], vocab_emb: torch.T
     valid = torch.cat([torch.ones(n, device=dev), torch.zeros(pad, device=dev)])
     valid = valid.reshape(n_batches, bsz)
 
-    def body(params):
+    # every tensor the body reads is an argument (fits that share a store
+    # share its graph); it closes over the spec and the shapes only
+    def body(params, data, vocab_emb, idx, valid, lr, word_loss_weight):
         with torch.no_grad():  # the epoch's latents are constants of its steps
             latents = estimate_latents(params, data, data["text_weights"], data["text"])
         batch_losses = []
@@ -117,8 +120,10 @@ def fit_alternating(params, data: Mapping[str, torch.Tensor], vocab_emb: torch.T
     params = tree_map(torch.Tensor.detach, params)
     epoch_losses = []
     for _ in range(spec.n_epochs):
-        params, loss = run("alternating_epoch", body, params, carry=True)
+        params, loss = run(("alternating_epoch", spec), body, params, data, vocab_emb, idx,
+                           valid, lr, word_loss_weight, carry=True)
         epoch_losses.append(loss)
+    params = fit_result(run, graphs, params)
     with torch.no_grad():
         final = estimate_latents(params, data, data["text_weights"], data["text"])
     return final, params, torch.stack(epoch_losses)

@@ -35,6 +35,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from mmtpu_torch.graphs import Graphs, fit_graphs, fit_result
 from mmtpu_torch.models.decoder import is_stacked
 from mmtpu_torch.models.sentiment import apply_sentiment
 from mmtpu_torch.train.latents import (
@@ -44,7 +45,6 @@ from mmtpu_torch.train.latents import (
     epoch_active,
     epoch_permutation,
     finish_fit_decoder,
-    fit_graphs,
     fit_kind,
     gather_batch,
     joint_neg_log_prob_per_sample,
@@ -101,7 +101,7 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
             labels: torch.Tensor, vocab_emb: torch.Tensor, hp: Mapping, spec: E2EFitSpec,
             senti_mask: torch.Tensor | None = None, generator: torch.Generator | None = None,
             perms: Sequence | None = None, validation=None, mesh=None,
-            graphs: bool = True):
+            graphs: bool | Graphs = True):
     """The joint fit; returns ``(embed, decoder_params, senti_params, losses)``,
     and ``valid_losses`` after them when ``validation = (valid_init,
     valid_data)`` is given and ``spec.valid_every > 0`` (as
@@ -115,7 +115,8 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     one permutation per epoch, replaces the draws from ``generator``.
     ``mesh`` and ``graphs`` as :func:`mmtpu_torch.train.latents.fit_latents`'s:
     on the card each epoch (the sentiment head and its optimizer state in
-    the carry) runs as one CUDA graph replay.
+    the carry) runs as one CUDA graph replay, and a caller's store is shared
+    with the fits run through it.
     """
     lspec = spec.latent_spec()
     shard = batch_shard(dataclasses.replace(lspec, valid_every=spec.valid_every), mesh, hp,
@@ -133,9 +134,6 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     valid = torch.cat([torch.ones(n, device=device), torch.zeros(pad, device=device)])
     valid = valid.reshape(n_batches, bsz)
     pad_idx = torch.zeros(pad, dtype=torch.long, device=device)
-    lr = hp["lr"]
-    lw = per_config(hp["likelihood_weight"], init_embed.ndim - 1)  # against (B,) or (K, B)
-    heads_gate = hp["train_heads"] if "train_heads" in hp else None
 
     embed = init_embed.detach().to(torch.float32).clone()
     n_cfg = embed.shape[0] if embed.ndim == 3 else None  # the config axis
@@ -145,13 +143,18 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     e_opt = init_opt_state(embed, kind, n_cfg)
     d_opt = init_opt_state(dec, kind, n_cfg)
     s_opt = init_opt_state(sen, kind, n_cfg)
-    dec_gates = None
-    if heads_gate is not None:
-        dec_gates = {"heads": tree_map(lambda _: heads_gate, dec["heads"]),
-                     "norm": tree_map(lambda _: 1.0, dec["norm"])}
 
-    def body(carry, perm, active):
+    # every tensor the body reads is an argument (fits that share a store
+    # share its graph); it closes over the spec and the shapes only
+    def body(carry, perm, active, hp, data, labels, vocab_emb, senti_mask, valid, pad_idx):
         embed, dec, sen, e_opt, d_opt, s_opt = carry
+        lr = hp["lr"]
+        lw = per_config(hp["likelihood_weight"], embed.ndim - 1)  # against (B,) or (K, B)
+        heads_gate = hp["train_heads"] if "train_heads" in hp else None
+        dec_gates = None
+        if heads_gate is not None:
+            dec_gates = {"heads": tree_map(lambda _: heads_gate, dec["heads"]),
+                         "norm": tree_map(lambda _: 1.0, dec["norm"])}
         table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
         batch_losses = []
         for s in range(n_batches):
@@ -202,17 +205,19 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     # the host part of each epoch, then its device body (a graph replay where
     # graphs says so; a batch-sharded fit runs eagerly)
     run = fit_graphs(graphs, device, shard, spec.n_epochs_max)
+    key = ("e2e_epoch", spec, kind)
     carry = (embed, dec, sen, e_opt, d_opt, s_opt)
     losses, curve = [], []
     for epoch in range(spec.n_epochs_max):
         active = epoch_active(epoch, hp)
         perm = epoch_permutation(epoch, n, spec, device, generator, perms)
-        carry, loss = run("e2e_epoch", body, carry, perm, active, carry=True)
+        carry, loss = run(key, body, carry, perm, active, hp, data, labels, vocab_emb,
+                          senti_mask, valid, pad_idx, carry=True)
         losses.append(loss)
         if inner_spec is not None:
             curve.append(valid_curve_entry(epoch, spec, validation, carry[1], vocab_emb, hp,
                                            inner_spec, graphs))
-    embed, dec, sen = carry[:3]
+    embed, dec, sen = fit_result(run, graphs, carry[:3])
     out = (embed, finish_fit_decoder(dec, data, lspec, was_stacked), sen,
            torch.stack(losses, dim=-1))
     if inner_spec is None:

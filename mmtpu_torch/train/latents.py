@@ -74,7 +74,7 @@ from mmtpu_torch.train.optim import (
     lazy_adam_touch,
     opt_update,
 )
-from mmtpu_torch.graphs import Graphs, use_graphs
+from mmtpu_torch.graphs import Graphs, fit_graphs, fit_result
 from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
 
 
@@ -424,14 +424,6 @@ def batch_shard(spec, mesh, hp: Mapping, init_embed: torch.Tensor, validation=No
     return BatchShard(mesh.groups[axis], mesh.size(axis), mesh.index(axis), sync_stats=sync)
 
 
-def fit_graphs(graphs: bool, device, shard, epochs: int) -> Graphs:
-    """The :class:`mmtpu_torch.graphs.Graphs` of a fit of ``epochs``
-    epochs (:func:`mmtpu_torch.graphs.use_graphs`).  A batch-sharded fit
-    runs eagerly: its steps hold collectives, and capturing them waits for
-    NCCL capture and a four-card measurement."""
-    return Graphs(device, shard is None and use_graphs(graphs, device, epochs))
-
-
 def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: int, device,
                 generator, perms, epochs: int, shard=None, graphs=True):
     """One epoch of a latent fit, ``epoch(carry, epoch_idx) -> (carry, loss)``;
@@ -441,7 +433,10 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
     is a Python bool) runs first; its device body, every step of the epoch
     unrolled as mmtpu's scan body, reads nothing back to the host, and runs
     as a CUDA graph replay where ``graphs`` says so for a fit of ``epochs``
-    epochs (:func:`fit_graphs`; ``epoch.graphs`` holds the fit's graphs)."""
+    epochs (:func:`mmtpu_torch.graphs.fit_graphs`; ``epoch.graphs`` is the
+    fit's runner).  The body takes every tensor it reads (the hp, the data,
+    the vocabulary) as an argument and closes over the spec and the shapes
+    only, which its key names: fits that share a store share its graph."""
     kind = fit_kind(spec, hp)
     fused = spec.train_decoder and spec.fused_dec_update
     # mmtpu's gate: the static kind, so opt_kind=None runs dense Adam
@@ -452,13 +447,13 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
     valid = torch.cat([torch.ones(n, device=device), torch.zeros(pad, device=device)])
     valid = valid.reshape(n_batches, bsz)
     pad_idx = torch.zeros(pad, dtype=torch.long, device=device)
-    lr = hp["lr"]
-    # hp["train_dec"] = 0 freezes the WHOLE decoder, norm included
-    # (simplesif.py:55-56): the non-e2e freeze semantics
-    dec_gate = hp["train_dec"] if "train_dec" in hp else None
 
-    def body(carry, perm, active):
+    def body(carry, perm, active, hp, data, vocab_emb, valid, pad_idx):
         embed, dec, e_opt, d_opt = carry
+        lr = hp["lr"]
+        # hp["train_dec"] = 0 freezes the WHOLE decoder, norm included
+        # (simplesif.py:55-56): the non-e2e freeze semantics
+        dec_gate = hp["train_dec"] if "train_dec" in hp else None
         table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
         dec_gates = None if dec_gate is None else tree_map(lambda _: dec_gate, dec)
         batch_losses = []
@@ -497,11 +492,13 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
         return (embed, dec, e_opt, d_opt), torch.sum(torch.stack(batch_losses), dim=0)
 
     run = fit_graphs(graphs, device, shard, epochs)
+    key = ("latent_epoch", spec, kind)
 
     def epoch(carry, epoch_idx: int):
         active = epoch_active(epoch_idx, hp)
         perm = epoch_permutation(epoch_idx, n, spec, device, generator, perms)
-        return run("latent_epoch", body, carry, perm, active, carry=True)
+        return run(key, body, carry, perm, active, hp, data, vocab_emb, valid, pad_idx,
+                   carry=True)
 
     epoch.graphs = run
     return epoch
@@ -509,7 +506,7 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
 
 def fit_latents_segment(carry: tuple, data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec,
                         epoch_start: int, n_seg: int, generator: torch.Generator | None = None,
-                        perms: Sequence | None = None, graphs: bool = True):
+                        perms: Sequence | None = None, graphs: bool | Graphs = True):
     """Epochs ``[epoch_start, epoch_start + n_seg)`` of a latent fit from
     ``carry`` (:func:`init_fit_carry`); returns ``(carry, losses)`` with
     ``losses`` ``(n_seg,)``.  ``perms`` holds every epoch of the fit (indexed
@@ -523,7 +520,7 @@ def fit_latents_segment(carry: tuple, data: Mapping, vocab_emb, hp: Mapping, spe
     for e in range(epoch_start, epoch_start + n_seg):
         carry, loss = epoch(carry, e)
         losses.append(loss)
-    return carry, torch.stack(losses, dim=-1)
+    return fit_result(epoch.graphs, graphs, carry), torch.stack(losses, dim=-1)
 
 
 def make_inner_valid_spec(spec, valid_batch_mult: int) -> LatentFitSpec:
@@ -535,7 +532,7 @@ def make_inner_valid_spec(spec, valid_batch_mult: int) -> LatentFitSpec:
 
 
 def valid_fit_loss(validation, dec, vocab_emb, hp: Mapping, inner_spec,
-                   graphs: bool = True) -> torch.Tensor:
+                   graphs: bool | Graphs = True) -> torch.Tensor:
     """One validation sample: the valid split refit from its SIF init against
     the frozen decoder ``dec``; the loss of its last active epoch (each
     config's own under the config axis, ``(K,)``).  The refit is a fit of
@@ -550,7 +547,7 @@ def valid_fit_loss(validation, dec, vocab_emb, hp: Mapping, inner_spec,
 
 
 def valid_curve_entry(epoch: int, spec, validation, dec, vocab_emb, hp: Mapping,
-                      inner_spec, graphs: bool = True) -> torch.Tensor:
+                      inner_spec, graphs: bool | Graphs = True) -> torch.Tensor:
     """The curve at ``epoch``: a sample on active epochs at the cadence, else
     NaN (mmtpu's code; its docstring says the last value repeats).  Under
     the config axis the refit runs for every config at the cadence, and a
@@ -566,7 +563,7 @@ def valid_curve_entry(epoch: int, spec, validation, dec, vocab_emb, hp: Mapping,
 def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_emb: torch.Tensor,
                 hp: Mapping, spec: LatentFitSpec, generator: torch.Generator | None = None,
                 perms: Sequence | None = None, validation=None, mesh=None,
-                graphs: bool = True):
+                graphs: bool | Graphs = True):
     """Run the full latent fit; returns ``(embed, decoder_params, losses)``,
     and ``valid_losses`` after them when ``validation`` is given and
     ``spec.valid_every > 0``.
@@ -601,13 +598,17 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
     vocab shard of it (:func:`mmtpu_torch.parallel.fit.fit_latents_mesh`
     sets them up; :func:`batch_shard` says what it refuses).
 
-    ``graphs`` (:func:`mmtpu_torch.graphs.use_graphs`): True (the default)
+    ``graphs`` (:func:`mmtpu_torch.graphs.fit_graphs`): True (the default)
     runs each epoch as a CUDA graph replay on the card (the first epoch
     eagerly, as the warm-up; the second captures) when the fit runs at
     least :data:`mmtpu_torch.graphs.MIN_EPOCHS` epochs, and eagerly
     otherwise and on the CPU; False runs eagerly on the card too.  A
-    batch-sharded fit runs eagerly.  The validation curve's refits are fits
-    of their own, captured apart.
+    :class:`mmtpu_torch.graphs.Graphs` store that the caller made is shared
+    with every fit run through it: a fit of the same spec and shapes
+    replays what an earlier fit captured, from its first epoch, and this
+    fit returns copies of its final carry.  A batch-sharded fit runs
+    eagerly.  The validation curve's refits are fits of their own (on the
+    same store, where one is given).
     """
     shard = batch_shard(spec, mesh, hp, init_embed, validation)
     was_stacked = is_stacked(decoder_params)
@@ -624,9 +625,9 @@ def fit_latents(init_embed: torch.Tensor, decoder_params, data: Mapping, vocab_e
         if inner_spec is not None:
             curve.append(valid_curve_entry(e, spec, validation, carry[1], vocab_emb, hp,
                                            inner_spec, graphs))
-    out = (carry[0], finish_fit_decoder(carry[1], data, spec, was_stacked),
-           torch.stack(losses, dim=-1))
+    embed, dec = fit_result(epoch.graphs, graphs, carry[:2])
+    out = (embed, finish_fit_decoder(dec, data, spec, was_stacked), torch.stack(losses, dim=-1))
     if inner_spec is None:
         return out
-    curve.append(valid_fit_loss(validation, carry[1], vocab_emb, hp, inner_spec, graphs))
+    curve.append(valid_fit_loss(validation, dec, vocab_emb, hp, inner_spec, graphs))
     return out + (torch.stack(curve, dim=-1),)

@@ -22,8 +22,9 @@ from typing import Mapping, Sequence
 
 import torch
 
+from mmtpu_torch.graphs import Graphs, fit_graphs, fit_result
 from mmtpu_torch.models.sentiment import apply_sentiment
-from mmtpu_torch.train.latents import epoch_active, epoch_permutation, fit_graphs, take_rows
+from mmtpu_torch.train.latents import epoch_active, epoch_permutation, take_rows
 from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
 
 
@@ -73,7 +74,7 @@ def eval_sentiment_loss(params, latents, y, bsz: int = 32) -> torch.Tensor:
 
 def fit_sentiment(params, train_latents, train_y, valid_latents, valid_y, hp: Mapping,
                   spec: SentimentFitSpec, generator: torch.Generator | None = None,
-                  perms: Sequence | None = None, graphs: bool = True):
+                  perms: Sequence | None = None, graphs: bool | Graphs = True):
     """Train the sentiment MLP; returns
     ``(last_params, best_params, train_losses, valid_losses)``.
 
@@ -89,7 +90,9 @@ def fit_sentiment(params, train_latents, train_y, valid_latents, valid_y, hp: Ma
 
     ``graphs`` as :func:`mmtpu_torch.train.latents.fit_latents`'s: on the
     card each epoch of a fit of :data:`mmtpu_torch.graphs.MIN_EPOCHS` epochs
-    or more is one CUDA graph replay (a validating epoch a graph of its own).
+    or more is one CUDA graph replay (a validating epoch a graph of its own),
+    and a caller's store is shared with the fits run through it (the
+    latents, labels and ``lr_decay`` are arguments of each replay).
     """
     device = train_latents.device
     n = train_latents.shape[-2]
@@ -105,7 +108,10 @@ def fit_sentiment(params, train_latents, train_y, valid_latents, valid_y, hp: Ma
     stopped = torch.zeros(lr.shape, dtype=torch.bool, device=device)
     params = tree_map(torch.Tensor.detach, params)
 
-    def body(carry, perm, in_range, validate: bool):
+    # every tensor the body reads is an argument (fits that share a store
+    # share its graph); it closes over the spec and the shapes only
+    def body(carry, perm, in_range, validate: bool, train_latents, train_y, valid_latents,
+             valid_y, lr_decay):
         params, best, lr, valid_min, n_bad, trials, stopped = carry
         flat, valid = _batched_index(n, bsz, perm)
         active = ~stopped & in_range
@@ -156,14 +162,17 @@ def fit_sentiment(params, train_latents, train_y, valid_latents, valid_y, hp: Ma
     # validates; mmtpu's lax.cond), then its device body: a graph replay
     # where graphs says so
     run = fit_graphs(graphs, device, None, spec.n_epochs_max)
+    key = ("sentiment_epoch", spec)
     carry = (params, params, lr, valid_min, n_bad, trials, stopped)
     train_losses, valid_losses = [], []
     for epoch in range(spec.n_epochs_max):
         perm = epoch_permutation(epoch, n, spec, device, generator, perms)
         in_range = epoch_active(epoch, hp)
         validate = in_range is not False and epoch % spec.valid_niter == 0
-        carry, (train_loss, vloss) = run("sentiment_epoch", body, carry, perm, in_range,
-                                         validate, carry=True)
+        carry, (train_loss, vloss) = run(key, body, carry, perm, in_range, validate,
+                                         train_latents, train_y, valid_latents, valid_y,
+                                         lr_decay, carry=True)
         train_losses.append(train_loss)
         valid_losses.append(vloss)
-    return (*carry[:2], torch.stack(train_losses, dim=-1), torch.stack(valid_losses, dim=-1))
+    return (*fit_result(run, graphs, carry[:2]), torch.stack(train_losses, dim=-1),
+            torch.stack(valid_losses, dim=-1))

@@ -229,3 +229,50 @@ def test_sentiment_spec_fields_match_mmtpu():
                                valid_niter=3, patience=2, n_trials=2)
     assert_sentiment_close(got, want)
     assert np.isfinite(got[3].numpy()).all()
+
+
+@pytest.mark.parametrize("early_stopping,n_out", [(False, 1), (False, 3), (True, 1), (True, 3)])
+def test_sentiment_fit_under_config_axis_matches_vmapped_mmtpu(early_stopping, n_out):
+    """K = 3 configs through the port's config axis against
+    ``jax.vmap(mmtpu.train.sentiment.fit_sentiment)`` on the same draws
+    (each config's key gives its permutations): lr (0, 0.05, 0.02), lr decay
+    (0.5, 0.3, 0.5), n_epochs (60, 40, 25) of 60, validation every 3 epochs,
+    patience 2.  Parameters atol 2e-7, losses atol 5e-7: a few float32 ulps
+    (the largest differences seen were 8.9e-8 and 1.8e-7)."""
+    from mmtpu.models.sentiment import init_sentiment
+    from mmtpu.train import sentiment as js
+    from mmtpu_torch.train import sentiment as ts
+
+    rng = np.random.default_rng(7)
+    k, n, nv, d, epochs = 3, 40, 12, 6, 60
+    x, xv = (rng.standard_normal((k, m, d)).astype(np.float32) for m in (n, nv))
+    y, yv = (rng.standard_normal((m,) if n_out == 1 else (m, n_out)).astype(np.float32)
+             for m in (n, nv))
+    params = jax.tree.map(lambda *a: jnp.stack(a), *[init_sentiment(jax.random.key(i), d, 5, n_out)
+                                                     for i in range(k)])
+    keys = [jax.random.key(10 + i) for i in range(k)]
+    hp = {"lr": np.array([0.0, 0.05, 0.02], np.float32),
+          "lr_decay": np.array([0.5, 0.3, 0.5], np.float32),
+          "n_epochs": np.array([60, 40, 25], np.int32)}
+    fields = dict(n_epochs_max=epochs, early_stopping=early_stopping, valid_niter=3, patience=2)
+    spec = js.SentimentFitSpec(**fields)
+    want = jax.jit(jax.vmap(lambda key, p, x, xv, hp: js.fit_sentiment(
+        key, p, x, jnp.asarray(y), xv, jnp.asarray(yv), hp, spec)))(
+        jnp.stack(keys), params, jnp.asarray(x), jnp.asarray(xv),
+        {name: jnp.asarray(v) for name, v in hp.items()})
+    drawn = []
+    for key in keys:  # the fit's own draws: one split of the key per epoch
+        drawn.append([])
+        for _ in range(epochs):
+            key, sub = jax.random.split(key)
+            drawn[-1].append(np.array(jax.random.permutation(sub, n)))
+    perms = [torch.tensor(np.stack([p[e] for p in drawn])) for e in range(epochs)]
+    got = ts.fit_sentiment(to_torch(params), torch.tensor(x), torch.tensor(y), torch.tensor(xv),
+                           torch.tensor(yv), {name: torch.tensor(v) for name, v in hp.items()},
+                           ts.SentimentFitSpec(**fields), perms=perms)
+    for g, w in zip(got[:2], want[:2]):
+        jax.tree.map(lambda a, b: np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=2e-7),
+                     to_numpy(g), w)
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=5e-7)
+    assert np.isfinite(got[3].numpy()).all()

@@ -52,6 +52,9 @@ from tests.test_torch_legacy import _alt_data
 from tests.test_torch_serve import LADDER, _request, _servers
 
 
+GRAPHS = tg.Graphs  # the class itself, for eager references under the fixture's patch
+
+
 class HostRead(AssertionError):
     """A captured body read a tensor on the host or copied host data to a device."""
 
@@ -120,10 +123,10 @@ class ReplayOnCpu(tg.Graphs):
 @pytest.fixture
 def replayed(monkeypatch):
     """Fits and servers made in the test run on :class:`ReplayOnCpu`; yields
-    its instances.  The sentiment and alternating fits make theirs through
-    ``tl.fit_graphs``, so patching ``tl.Graphs`` reaches them too."""
+    its instances.  Every fit makes its store through ``tg.fit_graphs``, so
+    patching ``tg.Graphs`` reaches them all."""
     ReplayOnCpu.made = []
-    monkeypatch.setattr(tl, "Graphs", ReplayOnCpu)
+    monkeypatch.setattr(tg, "Graphs", ReplayOnCpu)
     monkeypatch.setattr(tserve, "Graphs", ReplayOnCpu)
     yield ReplayOnCpu.made
 
@@ -189,7 +192,7 @@ def test_replayed_latent_fit_is_the_eager_fit(case, replayed):
     the eager fit; one capture per (fit, active flag), a replay for every
     later epoch."""
     with pytest.MonkeyPatch.context() as mp:  # the eager reference: graphs off
-        mp.setattr(tl, "Graphs", tg.Graphs)
+        mp.setattr(tg, "Graphs", GRAPHS)
         want = _fit_latents(case)
     got = _fit_latents(case)
     _assert_bit_equal(got, want)
@@ -230,7 +233,7 @@ def test_replayed_config_axis_fit_is_the_eager_fit(spec_args, replayed):
     spec = tl.LatentFitSpec(n_epochs_max=3, batch_size=5, train_decoder=True, unimodal=False,
                             **spec_args)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tl, "Graphs", tg.Graphs)
+        mp.setattr(tg, "Graphs", GRAPHS)
         want = tl.fit_latents(init, dec, data, vocab, hp, spec, perms=perms)
     got = tl.fit_latents(init, dec, data, vocab, hp, spec, perms=perms)
     _assert_bit_equal(got, want)
@@ -268,7 +271,7 @@ def test_replayed_e2e_fit_is_the_eager_fit(spec_args, replayed):
     run = lambda: te2e.fit_e2e(init, dec, sen, data, labels, vocab, hp, spec,  # noqa: E731
                                senti_mask=smask, perms=perms)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tl, "Graphs", tg.Graphs)
+        mp.setattr(tg, "Graphs", GRAPHS)
         want = run()
     _assert_bit_equal(run(), want)
     assert (replayed[0].captures, replayed[0].replays) == (1, 2)
@@ -310,7 +313,7 @@ def test_replayed_sentiment_fit_is_the_eager_fit(case, replayed):
     config) inactive epochs, each warmed up, captured, then replayed."""
     args, hp, spec, perms = _sentiment_inputs(case)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tl, "Graphs", tg.Graphs)
+        mp.setattr(tg, "Graphs", GRAPHS)
         want = ts.fit_sentiment(*args, hp, spec, perms=perms)
     got = ts.fit_sentiment(*args, hp, spec, perms=perms)
     _assert_bit_equal(got, want)
@@ -341,10 +344,10 @@ def test_replayed_alternating_fit_is_the_eager_fit(replayed, monkeypatch):
     params = init_audio_visual_generator(torch.Generator().manual_seed(2), 8, 4, 3)
     spec = AlternatingFitSpec(n_epochs=4, batch_size=8)
     runs, calls = [], []
-    for graphs in (tg.Graphs, ReplayOnCpu):
+    for graphs in (GRAPHS, ReplayOnCpu):
         before = dict(tk1.LAUNCHES)
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(tl, "Graphs", graphs)
+            mp.setattr(tg, "Graphs", graphs)
             runs.append(fit_alternating(params, to_torch(data), to_torch(vocab), lr=1e-2,
                                         word_loss_weight=0.3, spec=spec))
         calls.append({k: tk1.LAUNCHES[k] - before[k] for k in before})
@@ -485,9 +488,9 @@ def test_use_graphs_picks_the_mode():
     assert tg.use_graphs(True, cuda, tg.MIN_EPOCHS - 1) is False
     assert tg.use_graphs(False, "cuda") is False
     assert tg.use_graphs(True, "cpu") is False and tg.use_graphs(False, "cpu") is False
-    assert tl.fit_graphs(True, cuda, None, tg.MIN_EPOCHS).enabled
-    assert not tl.fit_graphs(True, cuda, object(), tg.MIN_EPOCHS).enabled
-    assert not tl.fit_graphs(True, cuda, None, tg.MIN_EPOCHS - 1).enabled
+    assert tg.fit_graphs(True, cuda, None, tg.MIN_EPOCHS).enabled
+    assert not tg.fit_graphs(True, cuda, object(), tg.MIN_EPOCHS).enabled
+    assert not tg.fit_graphs(True, cuda, None, tg.MIN_EPOCHS - 1).enabled
     args = (*_latent_inputs()[:4], _hp(), tl.LatentFitSpec(
         n_epochs_max=1, batch_size=5, train_decoder=True, unimodal=False, shuffle=False))
     _assert_bit_equal(tl.fit_latents(*args, graphs=True), tl.fit_latents(*args, graphs=False))

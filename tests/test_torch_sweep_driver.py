@@ -148,18 +148,18 @@ def test_interrupted_sweep_resumes_bit_for_bit(prep, tmp_path, monkeypatch):
     checkpoint_dir, computes only the chunks it lacks and ends equal to the
     uninterrupted sweep bit for bit."""
     whole = _sweep(prep)
-    execute, calls = runner._execute, []
+    queue, calls = runner._queue, []
 
     def failing(*args, **kw):
         calls.append(1)
         if len(calls) == 2:
             raise RuntimeError("planted failure in chunk 2")
-        return execute(*args, **kw)
+        return queue(*args, **kw)
 
-    monkeypatch.setattr(runner, "_execute", failing)
+    monkeypatch.setattr(runner, "_queue", failing)
     with pytest.raises(RuntimeError, match="planted"):
         _sweep(prep, checkpoint_dir=str(tmp_path))
-    monkeypatch.setattr(runner, "_execute", execute)
+    monkeypatch.setattr(runner, "_queue", queue)
     with open(tmp_path / "sweep_state.json") as f:
         assert json.load(f)["chunks"] == [whole.chunk_stats[0]["chunk"]]
     resumed = _sweep(prep, checkpoint_dir=str(tmp_path))
