@@ -135,8 +135,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    epoch of a fit of ``graphs.MIN_EPOCHS`` epochs or more and per ladder
    size of the server, the default on the card; the fits of the phases
    above are shorter and run eagerly, phase 13's servers captured)
-   against eager (``graphs=False``), in turns in one process (eager,
-   captured, captured, eager): phase 4's training fit and phase 5's e2e fit
+   against eager (``graphs=False``), in turns in one process (eager, then
+   captured): phase 4's training fit and phase 5's e2e fit
    (``GRAPH_EPOCHS`` epochs), phase 10's chunk dense and fused
    (``GRAPH_SWEEP_EPOCHS`` epochs) and phase 13's server; each pair held to
    the whole-fit gates (loss rtol 2e-4, embeddings atol 2e-4), the chunks
@@ -161,7 +161,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    with their bit-equality, s per steady epoch, capture seconds, peak
    memory and launches (K1-fwd once per alternating step in every turn,
    nothing in the sentiment fits), and the chunk's sentiment phase once
-   eager and once captured at the grid's ``GRAPH_SENT_GRID_EPOCHS``; then,
+   eager and once captured at ``GRAPH_SENT_GRID_EPOCHS`` (the grid's 400
+   cut to 100); then,
    in a fresh process under ``torch.profiler`` (``--graphs-worker``), each
    path's host kernel and graph launches per step and per epoch (a steady
    captured sentiment or alternating epoch: one graph launch and at most
@@ -170,14 +171,33 @@ Phases, in order; any failure raises and the exit code is not 0:
    named in the trace inside every epoch, replays included, against the
    launch counters (which a replay adds to by its capture's launches): any
    difference fails.
+21. the other tasks (synthetic data): K1 at POM's 9206-word vocabulary
+   against its plain versions at phase 2's gates (64, 512 and 4096 rows,
+   times and bounds); POM at its real geometry (``POM_GEOMETRY``: 1357-token
+   rows), IEMOCAP and MOSI under ``dot_prod`` through ``run_experiment``,
+   e2e captured and non-e2e eager (``TASK_RUNS``), each against the same
+   run on the CPU in two worker processes (``--tasks-worker``) at the
+   whole-fit gates, with K1's launches, the graphs captured, the training
+   fit's s per steady epoch and the test metrics scored on the card against
+   the host report.  K1 and these paths run before the workers start, so
+   their times are taken with no other process on the host; the rest of
+   the phase runs beside the workers: ``dot_prod`` e2e again with TF32
+   matmuls (finite); the sentiment fit at 17 and 2 outputs captured against eager,
+   bit for bit; a POM sweep (``POM_SWEEP_K`` configs in chunks of
+   ``POM_SWEEP_CHUNK``, captured: each later chunk only replays) and one
+   chunk at the default width ``POM_WIDE_K`` with their peak memory; the
+   width-halving retry forced by a memory fraction (widths 32 then 16,
+   every result finite, the fraction restored); ``python -m
+   mmtpu_torch.sweep pom`` and ``iemocap`` on a small ``--configs_dir``.
 
-Phase 3 also holds K2 with the config axis (``K2_BATCHED_SHAPES``, per-config
+Each phase prints its wall seconds (``[time]``).  Phase 3 also holds K2 with
+the config axis (``K2_BATCHED_SHAPES``, per-config
 lr, bias corrections and flag, one config at flag 0) to its plain version and
 times it at the fused chunk's shape, beside 32 2-D calls, one per config slice
 of the same inputs, timed as one burst.  Phases 8-18 run inside the temporary
-directory of phases 4-6, before phase 7, and phase 20 after phase 18 in
-it; phase 19 runs last.  Around each path
-of phases 4-6 and 8-20 the kernel launch counts are set to 0 just before and read just after
+directory of phases 4-6, before phase 7, and phases 20 and 21 after phase
+18 in it; phase 19 runs last.  Around each path
+of phases 4-6 and 8-21 the kernel launch counts are set to 0 just before and read just after
 (phases 12, 17 and 18 in the processes that run them).  The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -1716,12 +1736,16 @@ WORKER_TIMEOUT_S = 600
 
 def _torchrun(n: int, script: str, args: list, tmp: str, tag: str) -> dict:
     """Start ``torchrun --standalone`` with ``n`` processes of ``script``
-    (its own free port), its output into ``<tmp>/<tag>.log``; a thread
-    notes when it ends.  :func:`_wait_all` collects it."""
+    (its own free port) as :func:`_start` does."""
+    return _start([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", str(n), script, *args], tmp, tag)
+
+
+def _start(cmd: list, tmp: str, tag: str) -> dict:
+    """Start ``cmd`` in ``tmp``, its output into ``<tmp>/<tag>.log``; a
+    thread notes when it ends.  :func:`_wait_all` collects it."""
     import threading
 
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(n), script, *args]
     job = {"log": os.path.join(tmp, f"{tag}.log"), "t0": time.perf_counter()}
     job["out"] = open(job["log"], "w")
     # a session of its own, so that _stop ends torchrun's workers with it
@@ -2279,6 +2303,524 @@ def run_deep_e2e(torch, K, T, e2e: dict) -> dict:
             "final_loss": loss["cuda"], "wall_s": wall}
 
 
+# phase 21: the other tasks.  POM at its real geometry (scripts/parity_fullscale.py:
+# 600 / 100 / 203 utterances, 1357-token rows of a 9206 x 300 vocabulary,
+# audio and visual 43, 17 traits), IEMOCAP at MOSI's scale (2-class one-hot
+# labels) and MOSI under the dot_prod word metric, all synthetic (the real
+# blobs are not in the repository).  Their run_experiment paths run e2e
+# captured (graphs.MIN_EPOCHS epochs) and non-e2e eager (TASK_EAGER_EPOCHS),
+# on the card and then, in worker processes started after them, on the CPU,
+# at the whole-fit gates; the sentiment epochs are phase 5's smoke config's
+# (10, cut from the grid's 400)
+POM_GEOMETRY = dict(n_train=600, n_valid=100, n_test=203, vocab_size=9206, embed_dim=300,
+                    audio_dim=43, visual_dim=43, text_len=1357)
+TASK_EAGER_EPOCHS = 3
+TASK_LOSS_RTOL, TASK_EMB_ATOL = 2e-4, 2e-4
+# (tag, dataset, word metric, e2e) of phase 21's run_experiment paths
+TASK_RUNS = (("pom_e2e", "pom", "angular", True), ("pom", "pom", "angular", False),
+             ("iemocap_e2e", "iemocap", "angular", True), ("iemocap", "iemocap", "angular", False),
+             ("dot_prod_e2e", "mosi", "dot_prod", True), ("dot_prod", "mosi", "dot_prod", False))
+# the CPU references' worker processes, (torch threads, tags) each: the
+# POM e2e run alone in one, the rest in the other (torch's threads scale
+# poorly at these sizes, so two processes of a few threads each finish
+# sooner than one of many; the card's process keeps a core)
+TASK_WORKERS = ((4, ("pom_e2e",)),
+                (3, ("pom", "iemocap_e2e", "iemocap", "dot_prod_e2e", "dot_prod")))
+# K1 at POM's vocabulary: the train batch, the inference batch and a K = 8
+# chunk's inference rows (burst lengths per rows)
+POM_K1_ROWS = {64: 100, 512: 50, 4096: 10}
+# the POM sweep: the first POM_SWEEP_K configs of the grid's Adam / 100-epoch
+# bucket in chunks of POM_SWEEP_CHUNK (a bucket with a later chunk), epochs
+# and sentiment epochs cut to POM_SWEEP_EPOCHS (captured); one chunk at the
+# CLI's default width POM_WIDE_K; the width-halving retry forced at that
+# width on a sweep of its configs cut to RETRY_EPOCHS (eager)
+POM_SWEEP_K, POM_SWEEP_CHUNK, POM_WIDE_K, POM_SWEEP_EPOCHS = 16, 8, 32, 20
+RETRY_EPOCHS = 2
+
+
+def task_config(tag: str, dataset: str, metric: str, e2e: bool):
+    """The smoke config (phase 4 / 5) on ``dataset`` under ``metric``: e2e at
+    ``graphs.MIN_EPOCHS`` epochs (captured), non-e2e at ``TASK_EAGER_EPOCHS``."""
+    from mmtpu_torch.config import ExperimentConfig
+    from mmtpu_torch.graphs import MIN_EPOCHS
+
+    return ExperimentConfig.from_dict(dict(
+        smoke_config(e2e), dataset=dataset, word_sim_metric=metric, config_name=tag,
+        n_epochs=MIN_EPOCHS if e2e else TASK_EAGER_EPOCHS))
+
+
+def task_prep(dataset: str, metric: str, cfg=None, pos_dims=None):
+    """The synthetic data of a phase-21 path: POM at ``POM_GEOMETRY``, the
+    others at MOSI's; positional channels baked as ``run_experiment``'s
+    ``prepare`` does for ``cfg``, or shared blocks ``pos_dims`` (the sweep)."""
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
+
+    ds = synthesize_dataset(dataset, **(POM_GEOMETRY if dataset == "pom" else {}))
+    if pos_dims is not None:
+        return prepare_device_data(ds, word_sim_metric=metric, pos_mode="shared",
+                                   pos_dims=pos_dims)
+    return prepare_device_data(ds, word_sim_metric=metric, pos_embed_dim=cfg.pos_embed_dim,
+                               pos_mode="baked", pos_bug_parity=cfg.parity,
+                               suff_stats=not cfg.parity)
+
+
+def _run_task(tag, dataset, metric, e2e, device, out_root: str, prep=None) -> dict:
+    """One phase-21 path through ``run_experiment`` on ``device``; its final
+    loss, post embeddings, test results after training and wall seconds."""
+    import numpy as np
+
+    from mmtpu_torch.runner import run_experiment
+
+    cfg = task_config(tag, dataset, metric, e2e)
+    prep = prep or task_prep(dataset, metric, cfg)
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, out_root=out_root, prep=prep, verbose=False, device=device)
+    wall = time.perf_counter() - t0
+    folder = os.path.join(out_root, tag, f"config_{cfg.config_num}_run_0", "post")
+    return {"final_loss": float(res["final_train_loss"]), "after": res["sentiment"]["after"],
+            "emb": np.load(os.path.join(folder, "embed.npy")), "wall_s": wall,
+            "folder": folder, "n_test": int(prep.sif_init["test"].shape[0])}
+
+
+def tasks_worker(argv: list) -> int:
+    """Phase 21's CPU references (``chip_smoke.py --tasks-worker TMP
+    THREADS TAG,...``): the named paths of ``TASK_RUNS`` through
+    ``run_experiment`` on the CPU with ``THREADS`` torch threads, their post
+    embeddings under ``TMP/cpu`` and one JSON line per path."""
+    import torch
+
+    torch.set_num_threads(int(argv[1]))
+    tags = argv[2].split(",")
+    out_root = os.path.join(argv[0], "cpu")
+    for tag, dataset, metric, e2e in TASK_RUNS:
+        if tag not in tags:
+            continue
+        r = _run_task(tag, dataset, metric, e2e, "cpu", out_root)
+        print(json.dumps({"tag": tag, "final_loss": r["final_loss"], "wall_s": r["wall_s"],
+                          "folder": r["folder"]}), flush=True)
+    return 0
+
+
+def _count_captures(G) -> tuple:
+    """Counts the CUDA graphs captured from now on (every store); returns
+    ``(counts, restore)``."""
+    counts = {"captures": 0}
+    capture = G.Graphs._capture
+
+    def counting(self, *args, **kw):
+        counts["captures"] += 1
+        return capture(self, *args, **kw)
+
+    G.Graphs._capture = counting
+    return counts, lambda: setattr(G.Graphs, "_capture", capture)
+
+
+def check_pom_k1(torch, K, dev) -> dict:
+    """K1 at POM's 9206-word vocabulary against its plain versions at phase
+    2's gates, at ``POM_K1_ROWS``; times and bounds there."""
+    gen = torch.Generator().manual_seed(21)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0, "times": {}, "bounds": {}}
+    v = POM_GEOMETRY["vocab_size"]
+    for b, reps in POM_K1_ROWS.items():
+        case = _k1_case(torch, dev, gen, b, 300, v)
+        errs = _check_k1(torch, K, *case)
+        out["fwd_err"], out["bwd_err"] = max(out["fwd_err"], errs[0]), max(out["bwd_err"], errs[1])
+        out["times"][b] = _k1_times(torch, K, *case, single_calls=False, reps=reps)
+        out["bounds"][b] = _k1_bounds(b, 300, v)
+    return out
+
+
+def _task_metrics(torch, r: dict, dataset: str, prep, hidden: int, dev) -> dict:
+    """The card run's test predictions (its saved sentiment MLP on its post
+    test embeddings) scored on the card by ``pom_metrics`` /
+    ``iemocap_metrics`` / ``mosi_metrics``, against the host report that
+    ``run_experiment`` wrote from the same run (``pom_loss`` rounds to 3
+    decimals, ``full_loss`` to 5 and ``iemocap_loss`` not)."""
+    import numpy as np
+
+    from mmtpu_torch.eval.metrics import iemocap_metrics, mosi_metrics, pom_metrics
+    from mmtpu_torch.models.sentiment import apply_sentiment, init_sentiment
+    from mmtpu_torch.tree import tree_leaves, tree_unflatten
+
+    y = prep.labels["test"]
+    n_out = 1 if y.ndim == 1 else y.shape[-1]
+    like = init_sentiment(torch.Generator().manual_seed(0), prep.embed_dim, hidden, n_out)
+    with np.load(os.path.join(r["folder"], "senti.npz")) as saved:
+        params = tree_unflatten(like, [torch.as_tensor(saved[f"p{i}"], device=dev)
+                                       for i in range(len(tree_leaves(like)))])
+    test = torch.as_tensor(r["emb"][-r["n_test"]:], device=dev)
+    with torch.no_grad():
+        pred = apply_sentiment(params, test)
+    fn = {"pom": pom_metrics, "iemocap": iemocap_metrics}.get(dataset, mosi_metrics)
+    dm = {k: v.cpu().numpy() for k, v in fn(pred, torch.as_tensor(y, device=dev)).items()}
+    shape = (y.shape[-1],) if dataset == "pom" else ()
+    tol = 6e-4 if dataset == "pom" else 2e-5  # pom_loss rounds to 3 decimals
+    host = r["after"]
+    diffs = {k: float(np.max(np.abs(v - np.asarray(host[k])))) for k, v in dm.items()}
+    for k, v in dm.items():
+        if v.shape != shape or not np.isfinite(v).all():
+            raise AssertionError(f"{dataset} {k} on the card: shape {v.shape} (want {shape}), "
+                                 f"finite {np.isfinite(v).all()}")
+        if not diffs[k] <= tol:
+            raise AssertionError(f"{dataset} {k} on the card differs from the host report by "
+                                 f"{diffs[k]:.3e}")
+    return {"shapes": {k: list(v.shape) for k, v in dm.items()}, "host_diff": diffs}
+
+
+def _sentiment_widths(torch, G, preps: dict, dev) -> dict:
+    """The sentiment fit at POM's 17 outputs and IEMOCAP's 2, on the SIF
+    embeddings of each, ``graphs.MIN_EPOCHS`` epochs captured and eager:
+    bit for bit, with the captures counted."""
+    from mmtpu_torch.models.sentiment import init_sentiment
+    from mmtpu_torch.train.sentiment import SentimentFitSpec, fit_sentiment
+    from mmtpu_torch.tree import tree_leaves, tree_map
+
+    out = {}
+    for name, prep in preps.items():
+        x, xv = (torch.as_tensor(prep.sif_init[s], device=dev) for s in ("train", "valid"))
+        y, yv = (torch.as_tensor(prep.labels[s], device=dev) for s in ("train", "valid"))
+        n_out = y.shape[-1]
+        gen = torch.Generator().manual_seed(5)
+        params = tree_map(lambda t: t.to(dev), init_sentiment(gen, prep.embed_dim, 150, n_out))
+        perms = [torch.randperm(x.shape[0], generator=gen).to(dev)
+                 for _ in range(G.MIN_EPOCHS)]
+        hp = {"lr": 1e-2, "lr_decay": 0.5, "n_epochs": G.MIN_EPOCHS}
+        spec = SentimentFitSpec(n_epochs_max=G.MIN_EPOCHS)
+        runs = {}
+        for graphs in (False, True):
+            counts, restore = _count_captures(G)
+            try:
+                fit = fit_sentiment(params, x, y, xv, yv, hp, spec, perms=perms, graphs=graphs)
+            finally:
+                restore()
+            runs[graphs] = ([fit[2], fit[3], *tree_leaves(fit[0])], counts["captures"])
+        same = all(torch.equal(a, b) for a, b in zip(runs[False][0], runs[True][0]))
+        finite = all(bool(torch.isfinite(t).all()) for t in runs[True][0])
+        log(f"[tasks] sentiment fit at {n_out} outputs (synthetic {name}, {G.MIN_EPOCHS} "
+            f"epochs): captured "
+            f"({runs[True][1]} graphs) against eager ({runs[False][1]}): bit-equal {same}; "
+            f"finite {finite}")
+        if not (same and finite and runs[True][1] > 0 and runs[False][1] == 0):
+            raise AssertionError(f"the {n_out}-output sentiment fit captured is not the eager one")
+        out[name] = {"n_out": n_out, "bit_equal": same, "captures": runs[True][1]}
+    return out
+
+
+def _pom_configs(k: int) -> list:
+    """The first ``k`` configs of the grid's Adam / 100-epoch bucket, their
+    epochs and sentiment epochs cut to ``POM_SWEEP_EPOCHS``."""
+    from mmtpu_torch.config import make_grid
+
+    bucket = [c for c in make_grid() if c["optimizer"] == "adam" and c["n_epochs"] == 100]
+    return [dict(c, n_epochs=POM_SWEEP_EPOCHS, n_sentiment_epochs=POM_SWEEP_EPOCHS)
+            for c in bucket[:k]]
+
+
+def _memory(torch, dev) -> dict:
+    return {"allocated_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "reserved_gib": torch.cuda.max_memory_reserved(dev) / 2 ** 30}
+
+
+def _fresh_peak(torch, dev) -> None:
+    """Cached blocks freed and the peak statistics reset: the next peak is
+    what the next call holds, beside the tensors alive now."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _finite_result(res) -> bool:
+    import numpy as np
+
+    return bool(np.isfinite(res.final_train_loss).all() and not res.diverged.any()
+                and all(np.isfinite(v).all() for v in res.metrics.values()))
+
+
+def run_pom_sweeps(torch, K, T, dev) -> dict:
+    """Phase 21's POM sweeps at the real geometry, captured: ``run_sweep``
+    over ``POM_SWEEP_K`` configs in chunks of ``POM_SWEEP_CHUNK`` (each later
+    chunk replays the bucket's graphs; every result finite; K1 launches;
+    peak memory); one ``run_chunk`` at the CLI's default width
+    ``POM_WIDE_K`` (peak memory); then the width-halving retry of a sweep
+    of ``POM_WIDE_K`` configs (``RETRY_EPOCHS``, eager), forced by a memory
+    fraction just under that sweep's peak at its width, from ``POM_WIDE_K``
+    to half of it, every result finite; the fraction restored."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from mmtpu_torch.sweep.runner import run_chunk, run_sweep
+
+    wide = _pom_configs(POM_WIDE_K)
+    dims = tuple(sorted({c["pos_embed_dim"] for c in wide}))
+    prep = task_prep("pom", "angular", pos_dims=dims)
+    n_train, n_valid, n_test = (prep.sif_init[s].shape[0] for s in ("train", "valid", "test"))
+    per_chunk = POM_SWEEP_EPOCHS * (-(-n_train // 64) + -(-n_valid // 512) + -(-n_test // 512))
+    out = {}
+
+    _fresh_peak(torch, dev)
+    _reset_launches(K, T)
+    t0 = time.perf_counter()
+    sweep = run_sweep(wide[:POM_SWEEP_K], prep, chunk_size=POM_SWEEP_CHUNK, device=dev,
+                      verbose=False)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = _read_launches(K, T)
+    mem8 = _memory(torch, dev)
+    stats = sweep.chunk_stats
+    log(f"[tasks] synthetic POM sweep ({POM_SWEEP_K} configs of the grid's Adam / 100 bucket "
+        f"in chunks of {POM_SWEEP_CHUNK}, epochs and sentiment epochs 100 / 400 -> "
+        f"{POM_SWEEP_EPOCHS}, "
+        f"rows of {POM_GEOMETRY['text_len']} tokens, vocabulary {POM_GEOMETRY['vocab_size']}): "
+        f"wall {wall:.3f} s (CPU workers running); chunks "
+        f"{[(s['chunk'], s['configs'], s['graphs'], s['done_at_s']) for s in stats]}; "
+        f"launches {launches}; peak {mem8['allocated_gib']:.2f} GiB allocated, "
+        f"{mem8['reserved_gib']:.2f} GiB reserved; mae {sweep.metrics['mae'].shape}; finite "
+        f"{_finite_result(sweep)}")
+    later = [s["graphs"] for s in stats[1:]]
+    if len(stats) != POM_SWEEP_K // POM_SWEEP_CHUNK or not later or any(
+            g["warmups"] or g["captures"] or not g["replays"] for g in later):
+        raise AssertionError(f"a later chunk of the POM bucket did not only replay: {stats}")
+    want = len(stats) * per_chunk
+    if launches["k1_fwd"] != want or launches["k1_bwd"] != want:
+        raise AssertionError(f"K1 launched {launches} in the POM sweep, expected {want} each")
+    if not _finite_result(sweep) or sweep.metrics["mae"].shape != (POM_SWEEP_K, 17):
+        raise AssertionError("the POM sweep has a non-finite result or a wrong metric shape")
+    out["sweep"] = {"wall_s": wall, "chunks": stats, "launches": launches, "peak": mem8}
+    del sweep
+
+    _fresh_peak(torch, dev)
+    _reset_launches(K, T)
+    t0 = time.perf_counter()
+    chunk = run_chunk(wide, prep, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = _read_launches(K, T)
+    mem32 = _memory(torch, dev)
+    log(f"[tasks] synthetic POM chunk at width {POM_WIDE_K}: wall {wall:.3f} s (CPU workers "
+        f"running), phases "
+        f"{ {p: round(t, 3) for p, t in chunk.phase_s.items()} }; launches {launches}; peak "
+        f"{mem32['allocated_gib']:.2f} GiB allocated, {mem32['reserved_gib']:.2f} GiB reserved "
+        f"(the train fit's {POM_WIDE_K * 64} rows and the inference fits' {POM_WIDE_K * 512} "
+        f"rows of {POM_GEOMETRY['text_len']} tokens); finite {_finite_result(chunk)}")
+    if not _finite_result(chunk) or launches["k1_fwd"] != per_chunk:
+        raise AssertionError(f"the width-{POM_WIDE_K} POM chunk: finite "
+                             f"{_finite_result(chunk)}, launches {launches}")
+    out["wide_chunk"] = {"wall_s": wall, "phase_s": chunk.phase_s, "launches": launches,
+                         "peak": mem32}
+    del chunk
+
+    # the retry, eager (RETRY_EPOCHS; a captured fit's graphs keep a pool
+    # each, whose reserved memory hardly depends on the width).  The
+    # fraction caps the reserved memory, and an eager sweep needs about its
+    # reserved peak from an empty cache (its blocks fragment: width 16 can
+    # fail under a cap a little below its reserved peak, though that is far
+    # above what it allocates).  So the limit is halfway between the
+    # reserved peaks of the same sweep at width 16 and at width 32
+    half = POM_WIDE_K // 2
+    retry_cfgs = [dict(c, n_epochs=RETRY_EPOCHS, n_sentiment_epochs=RETRY_EPOCHS) for c in wide]
+    peaks = {}
+    for width in (half, POM_WIDE_K):
+        _fresh_peak(torch, dev)
+        run_sweep(retry_cfgs, prep, chunk_size=width, device=dev, verbose=False)
+        peaks[width] = _memory(torch, dev)
+    lo, hi = peaks[half]["reserved_gib"], peaks[POM_WIDE_K]["reserved_gib"]
+    limit = (lo + hi) / 2
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    _fresh_peak(torch, dev)
+    printed = io.StringIO()
+    torch.cuda.set_per_process_memory_fraction(limit / total, dev)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            retried = run_sweep(retry_cfgs, prep, chunk_size=POM_WIDE_K, device=dev,
+                                verbose=True)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    mem = _memory(torch, dev)
+    lines = [ln for ln in printed.getvalue().splitlines() if "failed on device" in ln]
+    widths = [POM_WIDE_K] + [int(ln.rsplit(" ", 1)[-1]) for ln in lines]
+    ran = sorted({s["configs"] for s in retried.chunk_stats})
+    log(f"[tasks] retry (synthetic POM, {len(wide)} configs, {RETRY_EPOCHS} epochs eager) "
+        f"under a memory limit of {limit:.3f} GiB of {total:.2f} (fraction "
+        f"{limit / total:.5f}; the same sweep unlimited peaked at width {half} "
+        f"{peaks[half]['allocated_gib']:.3f} GiB allocated, {lo:.3f} reserved, and at width "
+        f"{POM_WIDE_K} {peaks[POM_WIDE_K]['allocated_gib']:.3f} allocated, {hi:.3f} reserved: "
+        f"the limit is {limit - lo:.3f} GiB above the one and {hi - limit:.3f} below the "
+        f"other): printed {lines}; widths tried {widths}, chunks run at {ran}; wall "
+        f"{wall:.3f} s (CPU workers running); peak {mem['allocated_gib']:.3f} GiB allocated, "
+        f"{mem['reserved_gib']:.3f} reserved; finite {_finite_result(retried)}; the fraction "
+        f"restored to 1.0")
+    if widths != [POM_WIDE_K, half] or ran != [half] or not _finite_result(retried):
+        raise AssertionError(f"the forced retry went {widths} (chunks {ran}), expected "
+                             f"{[POM_WIDE_K, half]}")
+    if retried.n_configs != POM_WIDE_K:
+        raise AssertionError(f"the retried sweep returned {retried.n_configs} configs")
+    out["retry"] = {"limit_gib": limit, "total_gib": total, "widths": widths,
+                    "unlimited_peaks": peaks, "wall_s": wall, "peak": mem, "printed": lines}
+    return out
+
+
+def run_sweep_cli_tasks(torch, tmp: str) -> dict:
+    """``python -m mmtpu_torch.sweep pom`` and ``iemocap`` (in this process,
+    through the CLI's ``main``) on a ``--configs_dir`` of two grid configs
+    cut to 1 epoch and 2 sentiment epochs: the synthetic stand-ins of the
+    registry (MOSI's geometry), every row finite, the metrics' columns."""
+    import csv
+
+    from mmtpu_torch.sweep.__main__ import main as sweep_main
+
+    cfg_dir = os.path.join(tmp, "task_cli_configs")
+    os.makedirs(cfg_dir, exist_ok=True)
+    for c in _pom_configs(2):
+        with open(os.path.join(cfg_dir, f"config_{c['config_num']}.json"), "w") as f:
+            json.dump(dict(c, n_epochs=1, n_sentiment_epochs=2), f)
+    out = {}
+    for dataset in ("pom", "iemocap"):
+        res_dir = os.path.join(tmp, f"task_cli_{dataset}")
+        t0 = time.perf_counter()
+        rc = sweep_main([dataset, "--configs_dir", cfg_dir, "--out", res_dir, "--name", dataset,
+                         "--data_dir", os.path.join(tmp, "data"), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(res_dir, f"{dataset}.csv")) as f:
+            rows = list(csv.DictReader(f))
+        cols = sorted(k for k in rows[0] if k in ("mae", "corr", "accuracy", "f_score"))
+        finite = all(float(r["final_train_loss"]) == float(r["final_train_loss"]) for r in rows)
+        log(f"[tasks] python -m mmtpu_torch.sweep {dataset} --configs_dir (the registry's "
+            f"synthetic stand-in at MOSI's geometry, 2 configs, 1 epoch): "
+            f"rc {rc}, {len(rows)} rows, metric columns {cols}, final losses finite {finite}, "
+            f"wall {wall:.2f} s (CPU workers running)")
+        if rc != 0 or len(rows) != 2 or not finite:
+            raise AssertionError(f"the sweep CLI on {dataset}: rc {rc}, rows {rows}")
+        out[dataset] = {"rows": len(rows), "columns": cols, "wall_s": wall}
+    return out
+
+
+def run_tasks(torch, K, T, tmp: str) -> dict:
+    """Phase 21: the other tasks, on synthetic data.  K1 at POM's vocabulary
+    and the ``run_experiment`` paths of ``TASK_RUNS`` on the card (launches
+    and captures counted) come first, timed with no other process on the
+    host's cores.  Then the CPU references start in two worker processes,
+    and beside them run the dot_prod e2e path again with TF32 on, the sentiment
+    fit at 17 and 2 outputs, the POM sweeps and the retry (their walls are
+    taken with the workers running), and the sweep CLI on POM and IEMOCAP;
+    last, each path against the CPU at the whole-fit gates."""
+    import numpy as np
+
+    import mmtpu_torch.graphs as G
+
+    dev = torch.device("cuda", 0)
+    k1 = check_pom_k1(torch, K, dev)
+    card, preps, launches, metrics = {}, {}, {}, {}
+    for tag, dataset, metric, e2e in TASK_RUNS:
+        cfg = task_config(tag, dataset, metric, e2e)
+        key = (dataset, metric)
+        if key not in preps:
+            preps[key] = task_prep(dataset, metric, cfg)
+        counts, restore = _count_captures(G)
+        torch.cuda.synchronize(dev)
+        _reset_launches(K, T)
+        try:
+            with _GraphProbe(torch) as probe:
+                card[tag] = _run_task(tag, dataset, metric, e2e, dev,
+                                      os.path.join(tmp, "cuda"), preps[key])
+        finally:
+            restore()
+        torch.cuda.synchronize(dev)
+        launches[tag] = _read_launches(K, T)
+        card[tag]["captures"] = counts["captures"]
+        # the training fit is the run's first store: one call per epoch
+        epochs = [c[2] for c in probe.calls if c[0] is probe.made[0]]
+        card[tag]["steady_epoch_s"] = _steady(epochs, e2e)
+        prep = preps[key]
+        n = {s: prep.sif_init[s].shape[0] for s in ("train", "valid", "test")}
+        want = 0 if metric == "dot_prod" else cfg.n_epochs * (
+            -(-n["train"] // 64) + -(-n["valid"] // 512) + -(-n["test"] // 512))
+        metrics[tag] = _task_metrics(torch, card[tag], dataset, prep,
+                                     cfg.sentiment_hidden_size, dev)
+        log(f"[tasks] {tag} (synthetic {dataset}) on the card: {cfg.n_epochs} epochs "
+            f"{'captured' if e2e else 'eager'} ({counts['captures']} graphs captured), "
+            f"final loss {card[tag]['final_loss']:.4f}, run_experiment wall "
+            f"{card[tag]['wall_s']:.3f} s, the {'e2e' if e2e else 'latent'} training fit "
+            f"{card[tag]['steady_epoch_s']:.4f} s per steady epoch "
+            f"({len(epochs)} epochs; no other process running); launches {launches[tag]} "
+            f"(expected K1 {want} each); device metrics {metrics[tag]['shapes']}, against the "
+            f"host report max abs {metrics[tag]['host_diff']}")
+        if launches[tag]["k1_fwd"] != want or launches[tag]["k1_bwd"] != want:
+            raise AssertionError(f"{tag}: K1 launched {launches[tag]}, expected {want}")
+        if e2e != (counts["captures"] > 0):
+            raise AssertionError(f"{tag}: {counts['captures']} graphs captured")
+
+    # the CPU references start only now, so that the card paths above were
+    # timed alone; what follows runs beside them
+    jobs = {f"tasks_worker{i}": _start([sys.executable, os.path.abspath(__file__),
+                                        "--tasks-worker", tmp, str(n), ",".join(tags)],
+                                       tmp, f"tasks_worker{i}")
+            for i, (n, tags) in enumerate(TASK_WORKERS)}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = _run_task("dot_prod_e2e", "mosi", "dot_prod", True, dev,
+                             os.path.join(tmp, "cuda_tf32"), preps[("mosi", "dot_prod")])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = card["dot_prod_e2e"]
+        tf32_diff = {"loss_rel": abs(tf32["final_loss"] - f32["final_loss"]) / abs(
+            f32["final_loss"]), "emb_abs": float(np.abs(tf32["emb"] - f32["emb"]).max())}
+        tf32_finite = bool(np.isfinite(tf32["final_loss"]) and np.isfinite(tf32["emb"]).all())
+        log(f"[tasks] dot_prod_e2e (synthetic mosi) with TF32 matmuls on the card: final loss "
+            f"{tf32['final_loss']:.4f}, finite {tf32_finite}; "
+            f"against float32: loss rel {tf32_diff['loss_rel']:.3e}, post embeddings max abs "
+            f"{tf32_diff['emb_abs']:.3e} (printed, not gated)")
+        if not tf32_finite:
+            raise AssertionError("dot_prod with TF32 on is not finite")
+
+        sent = _sentiment_widths(torch, G, {"pom": preps[("pom", "angular")],
+                                            "iemocap": preps[("iemocap", "angular")]}, dev)
+        del preps
+        sweeps = run_pom_sweeps(torch, K, T, dev)
+        cli = run_sweep_cli_tasks(torch, tmp)
+
+        walls = _wait_all(jobs)
+        log("[tasks] CPU references: " + "; ".join(
+            f"{','.join(tags)} ({n} threads) {walls[f'tasks_worker{i}'][0]:.1f} s"
+            for i, (n, tags) in enumerate(TASK_WORKERS)) + " from their start")
+        cpu = {}
+        for _, text in walls.values():
+            for line in text.splitlines():
+                if line.startswith("{"):
+                    r = json.loads(line)
+                    cpu[r["tag"]] = r
+    finally:
+        _stop(jobs)
+    diffs = {}
+    for tag, *_ in TASK_RUNS:
+        want_emb = np.load(os.path.join(cpu[tag]["folder"], "embed.npy"))
+        got = card[tag]
+        loss_rel = abs(got["final_loss"] - cpu[tag]["final_loss"]) / abs(cpu[tag]["final_loss"])
+        emb_abs = float(np.abs(got["emb"] - want_emb).max())
+        finite = bool(np.isfinite(got["final_loss"]) and np.isfinite(got["emb"]).all()
+                      and np.isfinite(want_emb).all())
+        diffs[tag] = {"loss_rel": loss_rel, "emb_abs": emb_abs, "card_s": got["wall_s"],
+                      "cpu_s": cpu[tag]["wall_s"], "captures": got["captures"],
+                      "steady_epoch_s": got["steady_epoch_s"]}
+        log(f"[tasks] {tag} (synthetic), card against CPU: final loss rel {loss_rel:.3e}, post "
+            f"embeddings {got['emb'].shape} max abs {emb_abs:.3e}; finite {finite}; "
+            f"run_experiment wall s card {got['wall_s']:.3f}, CPU {cpu[tag]['wall_s']:.3f}")
+        if not finite or not (loss_rel < TASK_LOSS_RTOL and emb_abs < TASK_EMB_ATOL):
+            raise AssertionError(f"{tag} on the card disagrees with the CPU")
+    return {"k1": k1, "launches": launches, "diffs": diffs, "metrics": metrics,
+            "tf32": tf32_diff, "sentiment": sent, "sweeps": sweeps, "cli": cli,
+            "worker_s": {tag: w[0] for tag, w in walls.items()}}
+
+
 def check_small_agreement(torch) -> None:
     """Phase 7: small configs on the GPU (kernels) and on the CPU (plain
     versions) with the same draws must agree."""
@@ -2346,19 +2888,21 @@ def check_small_agreement(torch) -> None:
 
 # phase 20: the captured paths (CUDA graphs, mmtpu_torch/graphs.py; the
 # default on the card for a fit of graphs.MIN_EPOCHS epochs or more) against
-# eager (graphs=False), in turns in one process: eager, captured, captured,
-# eager.  The fits and the chunks run GRAPH_EPOCHS epochs (phase 4's, 5's and
-# 10's configs cut in depth only, to the fewest epochs that the default
+# eager (graphs=False), in turns in one process: eager, then captured (one
+# turn of each holds every gate; the spread of both modes was measured with
+# four turns per pair, PERF.md section 5, and the time went to phase 21).
+# The fits and the chunks run GRAPH_EPOCHS epochs (phase 4's, 5's and 10's
+# configs cut in depth only, to the fewest epochs that the default
 # captures).  The fits at the whole-fit gates (loss rtol, embeddings atol),
 # the chunks at phase 11's rule, the server at phase 13's SERVE_ATOL; each
 # pair also reports whether it is bit-equal.
 GRAPH_EPOCHS = GRAPH_SWEEP_EPOCHS = 20
 # the sweep's inference fits eager against captured by epoch count, for
 # graphs.MIN_EPOCHS: (label, "chunk" (the K = 32 dense chunk's) or "alone"
-# (one config's), the chunk's n_epochs, infer_epochs_cap); the grid's 100
-# epochs, and caps below and at the threshold
-GRAPH_BREAK_EVEN = (("chunk_e100", "chunk", 100, 0), ("chunk_cap10", "chunk", 100, 10),
-                    ("chunk_cap20", "chunk", 200, 20), ("alone_e100", "alone", 100, 0),
+# (one config's), the chunk's n_epochs, infer_epochs_cap): caps below and at
+# the threshold (the grid's uncapped 100 epochs are measured in PERF.md
+# section 6 and left out here to keep the script in its time)
+GRAPH_BREAK_EVEN = (("chunk_cap10", "chunk", 100, 10), ("chunk_cap20", "chunk", 200, 20),
                     ("alone_cap5", "alone", 100, 5))
 # phase 20's sweep bucket: GRAPH_SWEEP_CHUNKS chunks of GRAPH_SWEEP_K configs
 # of the grid's Adam / 100-epoch bucket at GRAPH_SWEEP_EPOCHS train and
@@ -2369,7 +2913,7 @@ GRAPH_BREAK_EVEN = (("chunk_e100", "chunk", 100, 0), ("chunk_cap10", "chunk", 10
 # sizes and both positional dims, so its statics are the sweep's
 GRAPH_SWEEP_CHUNKS, GRAPH_SWEEP_K = 3, 16
 GRAPH_LOSS_RTOL, GRAPH_EMB_ATOL = 2e-4, 2e-4
-GRAPH_TURNS = (False, True, True, False)
+GRAPH_TURNS = (False, True)
 # the device kernels of K1 and K2 by name in a torch.profiler trace (CUPTI
 # names the kernels that a graph replay runs as it names launched ones);
 # K2's Adam and SGD instances share a name stem and are counted together
@@ -2380,9 +2924,10 @@ GRAPH_TRACED_KERNELS = {"k1_fwd": "angular_fwd_kernel", "k1_bwd": "angular_bwd_k
 # phase 15's alternating fit, GRAPH_SENT_EPOCHS epochs each (a validating
 # sentiment epoch is a graph of its own: warmed up at epoch 0, captured at
 # 10, replayed from 20), eager against captured in turns; then the chunk's
-# sentiment phase once eager and once captured at the grid's 400 epochs.
+# sentiment phase once eager and once captured at GRAPH_SENT_GRID_EPOCHS,
+# the grid's 400 cut to 100 (400 took 32-38 s eager, PERF.md section 5).
 # Each of their epochs is 41 steps of 32 rows.
-GRAPH_SENT_EPOCHS, GRAPH_SENT_GRID_EPOCHS = 40, 400
+GRAPH_SENT_EPOCHS, GRAPH_SENT_GRID_EPOCHS = 40, 100
 SENT_STEPS_PER_EPOCH = -(-1284 // 32)
 # a steady captured epoch of those fits is one graph launch plus a few
 # copies and kernels around it (the permutation, the loss, and under the
@@ -2607,7 +3152,7 @@ def run_graph_small_fits(torch, K, T, tmp: str, dev) -> dict:
     for path, fn in paths.items():
         turns = [_turn(torch, K, T, dev, lambda g: fn(g, GRAPH_SENT_EPOCHS), g)
                  for g in GRAPH_TURNS]
-        eager, captured = [turns[0], turns[3]], [turns[1], turns[2]]
+        eager, captured = _split_turns(turns)
         rec = _compare_outs([t["out"] for t in captured], [t["out"] for t in eager])
         s_epoch = {m: [_steady(t["probe"].epochs(), m == "captured") for t in ts]
                    for m, ts in (("eager", eager), ("captured", captured))}
@@ -2650,14 +3195,15 @@ def run_graph_small_fits(torch, K, T, tmp: str, dev) -> dict:
                                        "captured": _steady(captured["probe"].epochs(), True)},
                 "capture_s": captured["probe"].made[0].capture_s,
                 "peak_gib": {"eager": eager["peak_gib"], "captured": captured["peak_gib"]}})
-    log(f"[graphs] sentiment_chunk at the grid's {GRAPH_SENT_GRID_EPOCHS} epochs ("
+    log(f"[graphs] sentiment_chunk at {GRAPH_SENT_GRID_EPOCHS} epochs ("
         f"{len(sweep_configs())} configs): s eager {eager['s']:.3f} captured "
         f"{captured['s']:.3f} (capture {rec['capture_s']:.3f} s); s per steady epoch eager "
         f"{rec['s_per_steady_epoch']['eager']:.5f} captured "
         f"{rec['s_per_steady_epoch']['captured']:.5f}; peak GiB {rec['peak_gib']}; captured "
         f"against eager: params max abs {rec['params_abs']:.3e}, bit-equal {rec['bit_equal']}")
     if not rec["params_abs"] < GRAPH_EMB_ATOL:
-        raise AssertionError("the chunk's captured 400-epoch sentiment phase disagrees")
+        raise AssertionError(f"the chunk's captured {GRAPH_SENT_GRID_EPOCHS}-epoch sentiment "
+                             f"phase disagrees")
     out["sentiment_chunk_grid"] = rec
     return out
 
@@ -2675,6 +3221,12 @@ def _turn(torch, K, T, dev, fn, graphs):
         secs = time.perf_counter() - t0
     return {"out": out, "launches": _read_launches(K, T), "s": secs, "probe": probe,
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def _split_turns(turns: list) -> tuple:
+    """``(eager turns, captured turns)`` of runs made in ``GRAPH_TURNS`` order."""
+    return ([t for t, g in zip(turns, GRAPH_TURNS) if not g],
+            [t for t, g in zip(turns, GRAPH_TURNS) if g])
 
 
 def _steady(times: list, captured: bool) -> float:
@@ -2706,7 +3258,7 @@ def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
     out = {}
     for path, fn in _graph_inputs(torch, tmp, dev).items():
         turns = [_turn(torch, K, T, dev, fn, g) for g in GRAPH_TURNS]
-        eager, captured = [turns[0], turns[3]], [turns[1], turns[2]]
+        eager, captured = _split_turns(turns)
         diffs = [((c["out"][1] - e["out"][1]).abs() / e["out"][1].abs()).max().item()
                  for c in captured for e in eager]
         emb = [(c["out"][0] - e["out"][0]).abs().max().item() for c in captured for e in eager]
@@ -2745,7 +3297,7 @@ def run_graphs(torch, K, T, tmp: str, e2e: dict) -> dict:
     n_train, k = 1284, len(configs)
     for path, fn in chunks.items():
         turns = [_turn(torch, K, T, dev, fn, g) for g in GRAPH_TURNS]
-        eager, captured = [turns[0], turns[3]], [turns[1], turns[2]]
+        eager, captured = _split_turns(turns)
         worst = {"loss_rel": 0.0, "pred_abs": 0.0, "emb_abs": 0.0}
         bad, bit_equal = [], True
         for c in captured:
@@ -2958,8 +3510,7 @@ def _graph_break_even(torch, tmp: str, dev) -> dict:
     """Phase 20's break-even of graphs.MIN_EPOCHS: the valid and test
     inference fits of phase 10's dense chunk and of one of its configs alone,
     with the trained decoder of a one-epoch run, at GRAPH_BREAK_EVEN's epoch
-    counts and caps; eager against captured in turns (eager, captured,
-    captured, eager; a pair where a fit runs 100 epochs or more), captured
+    counts and caps; eager against captured in turns (``GRAPH_TURNS``), captured
     forced below the threshold.  Per case: which mode the default picks,
     seconds per fit, and the captured embeddings against the eager ones."""
     import dataclasses
@@ -2985,7 +3536,7 @@ def _graph_break_even(torch, tmp: str, dev) -> dict:
         rec = {"fit_epochs": fit_epochs, "default": "captured" if fit_epochs >= threshold
                else "eager", "eager_s": {}, "captured_s": {}, "capture_s": {}}
         worst = 0.0
-        turns = GRAPH_TURNS if fit_epochs < 100 else GRAPH_TURNS[:2]
+        turns = GRAPH_TURNS
         for g in turns:
             G.MIN_EPOCHS = 0  # both modes at any epoch count
             try:
@@ -3248,6 +3799,14 @@ def _traced_launches(graphs: dict, key: str) -> dict:
             for c in [v.get("launch_check")] if c is not None}
 
 
+def _phase(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds printed under the phase's name."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3255,6 +3814,9 @@ def main() -> int:
         return mesh_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--graphs-worker"]:  # phase 20's traced runs
         return graphs_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--tasks-worker"]:  # phase 21's CPU references
+        sys.path.insert(0, ROOT)
+        return tasks_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3284,26 +3846,28 @@ def main() -> int:
         f"K1 resident blocks per SM: {occupancy}; K1-bwd depth slices: {slices}; K2 resident blocks per SM (D = 300 and "
         f"any D): {k2_occupancy}")
 
-    k1 = check_kernels(torch, K, dev)
-    k2 = check_k2(torch, T, dev)
+    k1 = _phase("2 (K1)", check_kernels, torch, K, dev)
+    k2 = _phase("3 (K2)", check_k2, torch, T, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        non_e2e = run_cli_path(torch, K, T, tmp, e2e=False)
-        e2e = run_cli_path(torch, K, T, tmp, e2e=True, flags=["--time_test"])
-        fused = run_fused_path(torch, K, T, tmp)
-        lazy = run_lazy_path(torch, K, T, tmp)
-        resume = run_curve_and_resume(torch, K, T, tmp, non_e2e)
-        sweep = run_sweep_chunk(torch, K, T, tmp)
-        fused_sweep = run_fused_chunks(torch, K, T, tmp, sweep)
-        cli_sweep = run_cli_sweep(torch, tmp)
-        serving = run_serving(torch, K, T, tmp, e2e)
-        warm = run_warm_chunk(torch, K, T, tmp, sweep)
-        alternating = run_alternating(torch, K, T, tmp)
-        ops = check_numeric_ops(torch, alternating.pop("prep"))
-        mesh = run_mesh(torch, K, T, tmp, non_e2e, e2e)
-        aux = run_aux(tmp)
-        graphs = run_graphs(torch, K, T, tmp, e2e)
-    check_small_agreement(torch)
-    deep_e2e = run_deep_e2e(torch, K, T, e2e)
+        non_e2e = _phase("4 (non-e2e)", run_cli_path, torch, K, T, tmp, e2e=False)
+        e2e = _phase("5 (e2e)", run_cli_path, torch, K, T, tmp, e2e=True,
+                     flags=["--time_test"])
+        fused = _phase("6 (fused)", run_fused_path, torch, K, T, tmp)
+        lazy = _phase("8 (lazy)", run_lazy_path, torch, K, T, tmp)
+        resume = _phase("9 (curve, resume)", run_curve_and_resume, torch, K, T, tmp, non_e2e)
+        sweep = _phase("10 (sweep chunk)", run_sweep_chunk, torch, K, T, tmp)
+        fused_sweep = _phase("11 (fused chunks)", run_fused_chunks, torch, K, T, tmp, sweep)
+        cli_sweep = _phase("12 (sweep CLI)", run_cli_sweep, torch, tmp)
+        serving = _phase("13 (serving)", run_serving, torch, K, T, tmp, e2e)
+        warm = _phase("14 (warm chunk)", run_warm_chunk, torch, K, T, tmp, sweep)
+        alternating = _phase("15 (alternating)", run_alternating, torch, K, T, tmp)
+        ops = _phase("16 (ops)", check_numeric_ops, torch, alternating.pop("prep"))
+        mesh = _phase("17 (mesh)", run_mesh, torch, K, T, tmp, non_e2e, e2e)
+        aux = _phase("18 (aux)", run_aux, tmp)
+        graphs = _phase("20 (graphs)", run_graphs, torch, K, T, tmp, e2e)
+        tasks = _phase("21 (tasks)", run_tasks, torch, K, T, tmp)
+    _phase("7 (small agreement)", check_small_agreement, torch)
+    deep_e2e = _phase("19 (deep e2e)", run_deep_e2e, torch, K, T, e2e)
 
     t, kb = k1["times"], k1["bounds"]
     st, sb = sweep["k1"]["times"], sweep["k1"]["bounds"]
@@ -3315,7 +3879,11 @@ def main() -> int:
                "sweep_cli": cli_sweep["launches"],
                "sweep_cli_resumed": cli_sweep["launches_resumed"],
                "serving": serving["launches"], "sweep_warm_chunk": warm["launches"],
-               "alternating": alternating["launches"], "deep_e2e": deep_e2e["launches"]}
+               "alternating": alternating["launches"], "deep_e2e": deep_e2e["launches"],
+               **{f"task_{tag}": n for tag, n in tasks["launches"].items()},
+               "task_pom_sweep": tasks["sweeps"]["sweep"]["launches"],
+               "task_pom_chunk_k32": tasks["sweeps"]["wide_chunk"]["launches"]}
+    pk = tasks["k1"]
     k1_path = {"fwd": e2e["launches"]["k1_fwd"], "bwd": e2e["launches"]["k1_bwd"]}
     record = {"kernels": [
         {"name": f"K1-{kind} angular_partition", "route": "cuda", "source": source,
@@ -3338,6 +3906,11 @@ def main() -> int:
          "launches_deep_e2e": deep_e2e["launches"][f"k1_{kind}"],
          "launches_traced_phase20": _traced_launches(graphs, f"k1_{kind}"),
          "max_abs_err_sweep_rows": sweep["k1"][f"{kind}_err"],
+         "max_abs_err_v9206": pk[f"{kind}_err"],
+         "launches_tasks": {tag: n[f"k1_{kind}"] for tag, n in tasks["launches"].items()},
+         **{f"{key}_v9206_b{b}": val for b in pk["times"] for key, val in (
+             ("ms", pk["times"][b][kind]), ("plain_ms", pk["times"][b][f"{kind}_plain"]),
+             ("bound_ms", pk["bounds"][b][kind][0]), ("bound_by", pk["bounds"][b][kind][1]))},
          **{f"{key}_d{d}_b{b}": val for (d, b), x in k1["deep"].items() for key, val in (
              ("ms", x["times"][kind]), ("plain_ms", x["times"][f"{kind}_plain"]),
              ("bound_ms", x["bounds"][kind][0]), ("bound_by", x["bounds"][kind][1]))},
@@ -3389,6 +3962,7 @@ def main() -> int:
                                                 "finite_sweep_configs")},
                   "aux": {k: aux[k] for k in ("trace_kernels", "trace_k1", "wall_s")},
                   "deep_e2e": {k: v for k, v in deep_e2e.items() if k != "launches"},
+                  "tasks": {k: v for k, v in tasks.items() if k not in ("k1", "launches")},
                   "graphs": graphs},
         "card": smi}
     print(json.dumps(record), flush=True)

@@ -13,6 +13,14 @@ Under the sweep's config axis the latents are ``(K, B, D)`` against the one
 shared ``(V, D)`` vocabulary: their rows are flattened to ``(K*B, D)``, so
 one call of ``Z`` (one K1 forward and one backward) serves all K configs.
 The rows are independent, so no value crosses configs.
+
+The per-token term reads each token's word vector.  The fits pass the
+tokens' ids (``text_ids``) in place of the gathered ``(..., B, L, D)``
+vectors: :func:`token_dots` computes the ``(..., B, L)`` dots a block of
+tokens at a time and keeps nothing ``(B, L, D)``-shaped for the backward,
+which gathers the same blocks again (mmtpu leaves this to XLA's fusions;
+gathered whole, a K = 32 sweep chunk's training step at POM's 1357-token
+rows held 2048 x 1357 x 300 floats, 3.3 GB).
 """
 
 from __future__ import annotations
@@ -57,11 +65,86 @@ def _partition(partition_fn, latents: torch.Tensor, vocab_embeddings: torch.Tens
     return z.reshape(*latents.shape[:-1], 1)
 
 
-def _sentence_angular_score(latents: torch.Tensor, sent_embeddings: torch.Tensor) -> torch.Tensor:
+# the most elements of gathered word vectors (a block of tokens of every row)
+# that token_dots holds at once: 512 MiB of float32
+TOKEN_BLOCK_ELEMS = 1 << 27
+
+
+def token_block(rows: int, depth: int) -> int:
+    """Tokens per block of :func:`token_dots` for ``rows`` rows of depth ``depth``."""
+    return max(1, TOKEN_BLOCK_ELEMS // max(1, rows * depth))
+
+
+class _TokenDots(torch.autograd.Function):
+    """``(R, M, L)`` dots of the ``(R, M, D)`` latents with the word vectors
+    ``vocab[ids]`` of row ``r``'s ``L`` tokens (``M`` latents share each
+    row's tokens), a block of tokens at a time; the gradient reaches the
+    latents only (the vocabulary is data).  The backward adds the blocks in
+    a fixed order, so two calls are bit for bit equal."""
+
+    @staticmethod
+    def forward(ctx, latents, vocab, ids):
+        ctx.save_for_backward(vocab, ids)
+        rows, n_tok = ids.shape
+        step = token_block(rows, latents.shape[-1])
+        out = latents.new_empty(rows, latents.shape[1], n_tok)
+        for s in range(0, n_tok, step):
+            out[:, :, s:s + step] = torch.bmm(latents, vocab[ids[:, s:s + step]].transpose(1, 2))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        vocab, ids = ctx.saved_tensors
+        rows, n_tok = ids.shape
+        step = token_block(rows, vocab.shape[-1])
+        g_lat = g.new_zeros(rows, g.shape[1], vocab.shape[-1])
+        for s in range(0, n_tok, step):
+            g_lat.baddbmm_(g[:, :, s:s + step], vocab[ids[:, s:s + step]])
+        return g_lat, None, None
+
+
+def token_dots(latents: torch.Tensor, vocab_embeddings: torch.Tensor,
+               text_ids: torch.Tensor) -> torch.Tensor:
+    """``(..., B, L)`` dots ``vocab[text_ids[..., b, l]] . latents[..., b, :]``
+    of ``(..., B, D)`` latents (leading axes broadcast), without a
+    ``(..., B, L, D)`` tensor: at most :data:`TOKEN_BLOCK_ELEMS` gathered
+    elements at a time, forward and backward.  ``(B, L)`` ids under leading
+    latent axes (the sweep's configs in an unshuffled inference fit) are
+    gathered once for all of them."""
+    if vocab_embeddings.requires_grad:
+        raise ValueError("token_dots differentiates the latents only; the vocabulary "
+                         "must not require grad")
+    d, n_tok = latents.shape[-1], text_ids.shape[-1]
+    if text_ids.ndim == 2 and latents.ndim > 2:  # (B, M, D): the configs share each row
+        lat = latents.reshape(-1, *latents.shape[-2:]).transpose(0, 1)
+        dots = _TokenDots.apply(lat, vocab_embeddings, text_ids)
+        return dots.transpose(0, 1).reshape(*latents.shape[:-1], n_tok)
+    lead = torch.broadcast_shapes(latents.shape[:-1], text_ids.shape[:-1])
+    lat = latents.expand(*lead, d).reshape(-1, 1, d)
+    ids = text_ids.expand(*lead, n_tok).reshape(-1, n_tok)
+    return _TokenDots.apply(lat, vocab_embeddings, ids).reshape(*lead, n_tok)
+
+
+def _dots(latents, vocab_embeddings, sent_embeddings, text_ids) -> torch.Tensor:
+    """Each token's ``(..., B, L)`` dot with its row's latent: from the
+    gathered ``sent_embeddings``, or from ``text_ids`` into the vocabulary
+    (:func:`token_dots`)."""
+    if (sent_embeddings is None) == (text_ids is None):
+        raise ValueError("pass exactly one of sent_embeddings and text_ids")
+    if text_ids is None:
+        return torch.einsum("...ld,...d->...l", sent_embeddings, latents)
+    return token_dots(latents, vocab_embeddings, text_ids)
+
+
+def _sentence_angular_score(latents, vocab_embeddings, sent_embeddings,
+                            text_ids) -> torch.Tensor:
     """``1 - acos(cos(sent_word, latent)) / pi`` per token (losses.py:84)."""
     lat_norm = torch.linalg.vector_norm(latents, dim=-1)[..., None]  # (B, 1)
-    sent_norm = torch.linalg.vector_norm(sent_embeddings, dim=-1)  # (B, L)
-    dots = torch.einsum("...ld,...d->...l", sent_embeddings, latents)
+    if text_ids is None:
+        sent_norm = torch.linalg.vector_norm(sent_embeddings, dim=-1)  # (B, L)
+    else:
+        sent_norm = torch.linalg.vector_norm(vocab_embeddings, dim=-1)[text_ids]
+    dots = _dots(latents, vocab_embeddings, sent_embeddings, text_ids)
     cos = dots / torch.clamp_min(sent_norm * lat_norm, _COS_EPS)
     return 1.0 - _safe_acos(cos) / _PI
 
@@ -70,17 +153,21 @@ def word_logprob_angular(
     latents: torch.Tensor,
     vocab_embeddings: torch.Tensor,
     word_weights: torch.Tensor,
-    sent_embeddings: torch.Tensor,
+    sent_embeddings: torch.Tensor | None,
     mask: torch.Tensor,
     a: float = 1e-3,
     partition_fn=None,
+    *,
+    text_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Angular-distance word log-likelihood per utterance, ``(B,)`` (``(K,
     B)`` for ``(K, B, D)`` latents).
 
     As :func:`mmtpu.ops.wordprob.word_logprob_angular`; ``partition_fn``
     overrides the computation of ``Z_s`` (default: the kernel wrapper
-    :func:`mmtpu_torch.kernels.angular.angular_partition`).
+    :func:`mmtpu_torch.kernels.angular.angular_partition`).  The tokens'
+    word vectors come as ``sent_embeddings`` ``(B, L, D)``, or as their ids
+    ``text_ids`` ``(B, L)`` (``sent_embeddings`` None; :func:`token_dots`).
     """
     if partition_fn is None:
         from mmtpu_torch.kernels.angular import angular_partition as partition_fn
@@ -88,7 +175,7 @@ def word_logprob_angular(
     z = _partition(partition_fn, latents, vocab_embeddings)  # (B, 1)
     alpha = 1.0 / (z * a + 1.0)
     unigram = alpha * word_weights
-    score = _sentence_angular_score(latents, sent_embeddings)
+    score = _sentence_angular_score(latents, vocab_embeddings, sent_embeddings, text_ids)
     context = (1.0 - alpha) * score / z
     log_probs = torch.log(unigram + context) * mask
     return torch.sum(log_probs, dim=-1)
@@ -98,14 +185,17 @@ def word_logprob_dot_prod(
     latents: torch.Tensor,
     vocab_embeddings: torch.Tensor,
     word_weights: torch.Tensor,
-    sent_embeddings: torch.Tensor,
+    sent_embeddings: torch.Tensor | None,
     mask: torch.Tensor,
     a: float = 1e-3,
     partition_fn=None,
+    *,
+    text_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Dot-product (softmax-form) word log-likelihood per utterance, ``(B,)``
     (:func:`mmtpu.ops.wordprob.word_logprob_dot_prod`); ``partition_fn``
-    overrides the computation of ``Z = sum_v exp(c . v)``."""
+    overrides the computation of ``Z = sum_v exp(c . v)``; the tokens as
+    :func:`word_logprob_angular`'s."""
     mask = _token_mask(mask, word_weights)
     if partition_fn is None:
         z = torch.sum(torch.exp(latents @ vocab_embeddings.T), dim=-1, keepdim=True)  # (B, 1)
@@ -113,7 +203,7 @@ def word_logprob_dot_prod(
         z = partition_fn(latents, vocab_embeddings)
     alpha = 1.0 / (z * a + 1.0)
     unigram = alpha * word_weights
-    dot = torch.einsum("...ld,...d->...l", sent_embeddings, latents)
+    dot = _dots(latents, vocab_embeddings, sent_embeddings, text_ids)
     context = (1.0 - alpha) * torch.exp(dot) / z
     log_probs = torch.log(unigram + context) * mask
     return torch.sum(log_probs, dim=-1)

@@ -45,21 +45,27 @@ computes only the chunks it lacks.  As in mmtpu, the sweep uploads its data
 once, each bucket's chunks share one set of captured graphs (a
 :class:`mmtpu_torch.graphs.Graphs` store: the first chunk captures, the
 others replay), and the chunks run one deep: chunk k's results are read
-back, scattered and saved while chunk k+1 runs.  mmtpu's TPU-relay
-machinery (the width-halving retry, concurrent compiles) has no
-counterpart: the port builds its kernels once.
+back, scattered and saved while chunk k+1 runs.  A chunk too wide for the
+card (``torch.cuda.OutOfMemoryError``, also as the cause of a failed
+capture) reruns the whole sweep at half the chunk width, as mmtpu's retry
+of a failed dispatch does, down to width 2.  mmtpu's concurrent bucket
+compiles have no counterpart: the port builds its kernels once.
 
 With a ``mesh`` (:func:`mmtpu_torch.parallel.mesh.make_mesh`, one rank per
 process) the config axis is sharded over the mesh's "config" axis: each
 rank trains a contiguous block of each chunk's configs as one program on
 its own device, with the whole chunk's statics, and the chunk's results are
 gathered so that every rank holds all of them.  The draws are per config,
-so the result does not depend on the layout.
+so the result does not depend on the layout.  A rank whose block fails
+sends the failure through that gather in place of its results, so every
+rank raises alike, and the ranks retry narrower together where each
+failure was the card's memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -519,20 +525,49 @@ def _queue_chunk(configs: Sequence[dict], prep: PreparedData, up: _Uploaded,
     the whole chunk's statics) runs to its end and every rank's blocks are
     gathered before this returns: the gather is a collective, which every
     rank enters in the chunks' order, so the mesh's chunks are not
-    pipelined."""
+    pipelined.  A block that raises is gathered as a :class:`_RankFailure`,
+    and every rank then raises (:func:`_raise_on_failure`)."""
     if mesh is None:
         return _queue(configs, prep, up, statics, draws, device, return_embeddings, True,
                       senti_mask, graphs, phase_timing).finish
     t0 = time.perf_counter()
     sharding = config_sharding(mesh)
     blk = sharding.block(len(configs))
-    local = None
+    local = failed = None
     if blk.stop > blk.start:  # more ranks than configs leave a rank none
-        local = _queue(configs[blk], prep, up, statics, draws[blk], device, return_embeddings,
-                       True, senti_mask, graphs, phase_timing).finish()
+        try:
+            local = _queue(configs[blk], prep, up, statics, draws[blk], device,
+                           return_embeddings, True, senti_mask, graphs, phase_timing).finish()
+        except Exception as exc:  # the gather below tells every rank
+            failed = exc
+            local = _RankFailure(mesh.index("config"), _out_of_memory(exc), repr(exc))
     parts = [p for p in sharding.gather(local) if p is not None]
+    _raise_on_failure(parts, failed)
     result = _concat(parts, time.perf_counter() - t0)
     return lambda: result
+
+
+@dataclasses.dataclass(frozen=True)
+class _RankFailure:
+    """A mesh rank's part of a chunk that raised, in place of its results."""
+
+    rank: int
+    out_of_memory: bool
+    error: str
+
+
+def _raise_on_failure(parts: list, failed: Optional[BaseException]) -> None:
+    """Every rank of the mesh raises alike when any rank's part of the chunk
+    failed: a ``torch.cuda.OutOfMemoryError`` when each failure was the
+    card's memory (so that every rank retries the sweep narrower, and the
+    ranks' collectives stay matched), else a ``RuntimeError``; chained to
+    this rank's own error."""
+    bad = [p for p in parts if isinstance(p, _RankFailure)]
+    if not bad:
+        return
+    kind = torch.cuda.OutOfMemoryError if all(p.out_of_memory for p in bad) else RuntimeError
+    raise kind("a chunk failed on the mesh: " + "; ".join(
+        f"config rank {p.rank}: {p.error}" for p in bad)) from failed
 
 
 def _check_mesh(mesh) -> None:
@@ -626,6 +661,17 @@ def _kernel_build_s(device: torch.device) -> float:
     t0 = time.perf_counter()
     build.load()
     return 0.0 if built else time.perf_counter() - t0
+
+
+def _out_of_memory(exc: BaseException) -> bool:
+    """Whether ``exc`` is the card running out of memory: a
+    ``torch.cuda.OutOfMemoryError``, or an error that it caused (a capture
+    that failed on one, :class:`mmtpu_torch.graphs.GraphCaptureError`)."""
+    while exc is not None:
+        if isinstance(exc, torch.cuda.OutOfMemoryError):
+            return True
+        exc = exc.__cause__
+    return False
 
 
 def _buckets(configs: Sequence[dict], n_epochs_max: int, chunk: int) -> list:
@@ -838,25 +884,56 @@ def run_sweep(configs: Sequence[dict], prep: PreparedData, batch_size: int = 64,
     # one chunk deep (mmtpu/sweep/runner.py:890-897): chunk k+1 is queued
     # (its host preparation overlapping chunk k on the device) before chunk
     # k is drained; phase_timing and the mesh run each chunk to its end
-    pending = None
-    for wi, (cid, kind, ne, positions) in enumerate(work):
-        if store is not None and cid in store.done:
-            scatter(positions, store.load(cid))
-            continue
-        try:
-            queued = queue(wi, cid, kind, ne, positions)
-        except BaseException:
-            if pending is not None:  # the chunk before is finished and saved first
-                drain(pending)
+    pending, retry = None, False
+    try:
+        for wi, (cid, kind, ne, positions) in enumerate(work):
+            if store is not None and cid in store.done:
+                scatter(positions, store.load(cid))
+                continue
+            try:
+                queued = queue(wi, cid, kind, ne, positions)
+            except BaseException as exc:
+                # the chunk before is finished and saved first, unless the
+                # whole sweep reruns narrower
+                if pending is not None and not (chunk > 2 and _out_of_memory(exc)):
+                    drain(pending)
+                raise
+            done, pending = pending, queued
+            if done is not None:
+                drain(done)
+            if phase_timing or mesh is not None:
+                done, pending = pending, None
+                drain(done)
+        if pending is not None:
+            drain(pending)
+    except (torch.cuda.OutOfMemoryError, graphs_mod.GraphCaptureError) as exc:
+        if chunk <= 2 or not _out_of_memory(exc):
             raise
-        done, pending = pending, queued
-        if done is not None:
-            drain(done)
-        if phase_timing or mesh is not None:
-            done, pending = pending, None
-            drain(done)
-    if pending is not None:
-        drain(pending)
+        retry = True  # outside the handler: its traceback holds the failed chunk's tensors
+    if retry:
+        # mmtpu/sweep/runner.py:898-925: the whole sweep again at half the
+        # width (chunks saved at this width are abandoned: the state keys on
+        # it); configs are already (config, run) pairs, so n_runs is 1.  The
+        # failed width's graphs and queued chunk go first, then the cached
+        # blocks they held.
+        pending = queued = up = None
+        stores.clear()
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        if verbose:
+            print(f"[sweep] chunk width {chunk} failed on device — "
+                  f"retrying the sweep at width {chunk // 2}")
+        return run_sweep(configs, prep, batch_size=batch_size, unimodal=unimodal, seed=seed,
+                         chunk_size=chunk // 2, return_embeddings=return_embeddings,
+                         verbose=verbose, checkpoint_dir=checkpoint_dir,
+                         senti_mask=senti_mask, validation_curve=validation_curve,
+                         lazy_adam=statics.lazy_adam, phase_timing=phase_timing,
+                         infer_batch_clamp=infer_batch_clamp,
+                         fused_dec_update=fused_dec_update,
+                         infer_warm_start=infer_warm_start,
+                         infer_epochs_cap=infer_epochs_cap, device=device, draws=draws,
+                         mesh=mesh)
 
     return SweepResult(
         config_nums=np.asarray([c.get("config_num", i) for i, c in enumerate(configs)]),

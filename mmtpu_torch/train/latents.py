@@ -40,7 +40,9 @@ entry and restored to the per-head dict on return.
 Data dict convention: as mmtpu's (``text_ids``, ``text_weights``,
 ``text_mask`` and either the raw streams with masks or their sufficient
 statistics ``<stream>_s0/s1/s2``), as tensors on the fit's device.  The
-word vectors are gathered from the vocabulary per batch, never as (N, L, D).
+word vectors are read from the vocabulary by id, a block of tokens at a time
+(:func:`mmtpu_torch.ops.wordprob.token_dots`), never as (N, L, D) nor as a
+batch's (B, L, D).
 """
 
 from __future__ import annotations
@@ -111,18 +113,18 @@ def _word_logprob(spec: LatentFitSpec, latents, vocab_emb, b):
     """The word log-likelihood; ``vocab_emb`` is the ``(V, D)`` table or,
     under a vocab-sharded mesh, this rank's
     :class:`mmtpu_torch.parallel.collectives.VocabShard`."""
-    if isinstance(vocab_emb, torch.Tensor):
-        sent, table, partition, dot_partition = vocab_emb[b["text_ids"]], vocab_emb, None, None
+    if isinstance(vocab_emb, torch.Tensor):  # the tokens' vectors read by id, a block at a time
+        sent, ids, table, partition, dot_partition = None, b["text_ids"], vocab_emb, None, None
     else:
-        sent, table = vocab_emb.lookup(b["text_ids"]), vocab_emb.table
+        sent, ids, table = vocab_emb.lookup(b["text_ids"]), None, vocab_emb.table
         partition = lambda lat, _: vocab_emb.partition(lat)  # noqa: E731
         dot_partition = lambda lat, _: vocab_emb.dot_partition(lat)  # noqa: E731
     if spec.word_metric == "angular":
         return word_logprob_angular(latents, table, b["text_weights"], sent, b["text_mask"],
-                                    partition_fn=partition)
+                                    partition_fn=partition, text_ids=ids)
     if spec.word_metric == "dot_prod":
         return word_logprob_dot_prod(latents, table, b["text_weights"], sent, b["text_mask"],
-                                     partition_fn=dot_partition)
+                                     partition_fn=dot_partition, text_ids=ids)
     raise NotImplementedError(spec.word_metric)
 
 

@@ -116,8 +116,46 @@ def run_sweep_case(case):
                                        **case["kw"]))
 
 
+def run_mesh_sweep(case):
+    """``run_sweep`` over a config mesh of every rank, the part of rank
+    ``fail_rank`` failing (``error`` "oom": out of memory, else a
+    ``ValueError``) in every chunk whose block there is wider than
+    ``fail_above`` configs.  Returns the result (none if the sweep raised),
+    the block widths this rank queued, the retry lines it printed and the
+    name of the error it raised ("" if none)."""
+    import contextlib
+    import io
+
+    import mmtpu_torch.sweep.runner as srunner
+
+    prep = _tiny_prep(case["prep"])
+    rank = torch.distributed.get_rank()
+    queue, tried = srunner._queue, []
+
+    def failing(configs, *args, **kw):
+        tried.append(len(configs))
+        if rank == case["fail_rank"] and len(configs) > case["fail_above"]:
+            raise (torch.cuda.OutOfMemoryError("CUDA out of memory (injected)")
+                   if case["error"] == "oom" else ValueError("injected"))
+        return queue(configs, *args, **kw)
+
+    printed = io.StringIO()
+    srunner._queue = failing
+    out, raised = {}, ""
+    try:
+        with contextlib.redirect_stdout(printed):
+            out = _result(srunner.run_sweep(case["configs"], prep, mesh=make_mesh(),
+                                            device="cpu", verbose=True, **case["kw"]))
+    except Exception as exc:
+        raised = type(exc).__name__
+    finally:
+        srunner._queue = queue
+    lines = [ln for ln in printed.getvalue().splitlines() if "failed on device" in ln]
+    return dict(out, tried=tried, retries=lines, raised=raised)
+
+
 RUN = {"latents": run_fit, "e2e": run_fit, "ops": run_ops, "step": run_step,
-       "chunk": run_sweep_case, "multihost": run_sweep_case}
+       "chunk": run_sweep_case, "multihost": run_sweep_case, "mesh_sweep": run_mesh_sweep}
 
 
 def main() -> None:

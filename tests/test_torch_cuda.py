@@ -703,3 +703,91 @@ def test_capture_that_reads_the_host_raises(cuda_device, monkeypatch):
         _fit("sgd-train", x, True)
     torch.cuda.synchronize()
     assert torch.ones(3, device=cuda_device).sum().item() == 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 512, 4096])
+def test_kernels_match_plain_at_pom_vocabulary(cuda_device, b):
+    """Both K1 kernels at POM's 9206-word vocabulary (a ragged last vocabulary
+    tile) at the train batch, the inference batch and a K = 8 chunk's
+    inference rows: phase 2's gates (forward sum rel < 1e-5, element rtol
+    1e-5; gradient max-rel < 1e-3 against autograd, atol 1e-5 against the
+    explicit formula), one launch each, two calls bit for bit equal."""
+    gen = torch.Generator().manual_seed(b)
+    lat = torch.randn(b, 300, generator=gen).to(cuda_device)
+    vocab = torch.randn(9206, 300, generator=gen)
+    vocab = (vocab / torch.linalg.vector_norm(vocab, dim=-1, keepdim=True)).to(cuda_device)
+    g = torch.randn(b, 1, generator=gen).to(cuda_device)
+    vn = torch.linalg.vector_norm(vocab, dim=-1)
+    before = dict(K.LAUNCHES)
+    z, dl = K.angular_fwd(lat, vocab, vn), K.angular_bwd(lat, vocab, vn, g)
+    assert K.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    z_p = K.angular_partition_ref(lat, vocab)
+    assert abs(z.sum().item() - z_p.sum().item()) / abs(z_p.sum().item()) < 1e-5
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=0)
+    lat_a = lat.clone().requires_grad_()
+    (K.angular_partition_ref(lat_a, vocab) * g).sum().backward()
+    assert ((dl - lat_a.grad).abs().max() / lat_a.grad.abs().max()).item() < 1e-3
+    torch.testing.assert_close(dl, K.angular_partition_bwd_ref(lat, vocab, vn, g),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(z, K.angular_fwd(lat, vocab, vn))
+    assert torch.equal(dl, K.angular_bwd(lat, vocab, vn, g))
+
+
+@pytest.mark.cuda
+def test_token_dots_repeat_bit_for_bit(cuda_device):
+    """The per-token term read by id at POM's row length (1357 tokens of a
+    9206-word vocabulary, 4096 rows, several token blocks): two calls'
+    dots and latent gradients are bit for bit equal (no atomics), and they
+    match the gathered form on the card at rtol 1e-5."""
+    from mmtpu_torch.ops.wordprob import token_block, token_dots
+
+    gen = torch.Generator().manual_seed(3)
+    vocab = torch.randn(9206, 300, generator=gen).to(cuda_device)
+    ids = torch.randint(0, 9206, (4096, 1357), generator=gen, dtype=torch.int32).to(cuda_device)
+    ids[:, :40] = 7  # a word repeated in every row
+    g = torch.randn(4096, 1357, generator=gen).to(cuda_device)
+    assert token_block(4096, 300) < 1357
+    outs = []
+    for _ in range(2):
+        lat = torch.randn(4096, 300, generator=torch.Generator().manual_seed(4)).to(
+            cuda_device).requires_grad_()
+        dots = token_dots(lat, vocab, ids)
+        (dots * g).sum().backward()
+        outs.append((dots.detach(), lat.grad))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    rows = slice(0, 64)  # the gathered form on a slice of the rows
+    sent = vocab[ids[rows].long()]
+    lat = torch.randn(4096, 300, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    torch.testing.assert_close(outs[0][0][rows], torch.einsum("bld,bd->bl", sent, lat[rows]),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(outs[0][1][rows], torch.einsum("bl,bld->bd", g[rows], sent),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_pom_chunk_at_long_rows_matches_cpu(cuda_device):
+    """A POM sweep chunk (three Adam configs of the grid, 17 traits) at
+    1024-token rows on the card against the same chunk on the CPU: final
+    losses rtol 2e-4, embeddings and metrics atol 2e-4."""
+    from mmtpu_torch.config import make_grid
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
+    from mmtpu_torch.sweep.runner import run_chunk
+
+    configs = [dict(c, n_epochs=2, n_sentiment_epochs=2) for c in make_grid()
+               if c["optimizer"] == "adam" and c["norm"] == "layer_norm"][:3]
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(synthesize_dataset(
+        "pom", n_train=40, n_valid=10, n_test=12, vocab_size=500, embed_dim=32, audio_dim=6,
+        visual_dim=5, text_len=1024), pos_mode="shared", pos_dims=dims)
+    res = {str(dev): run_chunk(configs, prep, batch_size=8, device=dev, return_embeddings=True)
+           for dev in (cuda_device, "cpu")}
+    card, cpu = res[str(cuda_device)], res["cpu"]
+    assert np.isfinite(cpu.final_train_loss).all()
+    np.testing.assert_allclose(card.final_train_loss, cpu.final_train_loss, rtol=2e-4)
+    for s in ("train", "valid", "test"):
+        np.testing.assert_allclose(card.embeddings[s], cpu.embeddings[s], atol=2e-4)
+    for name, v in cpu.metrics.items():
+        assert v.shape == (3, 17)
+        np.testing.assert_allclose(card.metrics[name], v, atol=2e-4, err_msg=name)

@@ -46,6 +46,13 @@ CASES = [
     dict(name="empty", op="multihost", configs=ONE, kw=dict(batch_size=BATCH)),
     dict(name="empty_curve", op="multihost", configs=ONE,
          kw=dict(batch_size=BATCH, validation_curve=True)),
+    # run_sweep over the config mesh, rank 1's half of each chunk of 4
+    # failing; compared with the sweep at width 2 in one process
+    dict(name="mesh_oom", op="mesh_sweep", configs=grid("adam", n_epochs=(2, 2, 2, 2)),
+         kw=dict(batch_size=BATCH, chunk_size=4), want_kw=dict(chunk_size=2),
+         fail_rank=1, fail_above=1, error="oom"),
+    dict(name="mesh_broken", op="mesh_sweep", configs=grid("adam", n_epochs=(2, 2, 2, 2)),
+         kw=dict(batch_size=BATCH, chunk_size=4), fail_rank=1, fail_above=1, error="value"),
 ]
 
 
@@ -76,7 +83,7 @@ def world2(tmp_path_factory):
             want[c["name"]] = run_chunk(c["configs"], prep, device="cpu", **c["kw"])
         else:
             want[c["name"]] = run_sweep(c["configs"], prep, device="cpu", verbose=False,
-                                        **c["kw"])
+                                        **dict(c["kw"], **c.get("want_kw", {})))
     return finish_world(running), want
 
 
@@ -96,6 +103,33 @@ def test_two_ranks_equal_one_process(world2, name):
         assert got[0]["config_nums"].tolist() == [0]
     if name == "empty_curve":
         assert got[0]["m:valid_curve"].shape == (1, 3)  # n_epochs + 1
+
+
+def test_mesh_ranks_retry_together_when_one_rank_runs_out_of_memory(world2):
+    """Rank 1 alone runs out of memory in the chunk of 4: the gather tells
+    rank 0, both ranks print mmtpu's message and rerun the sweep at width
+    2 (blocks of 1), and both hold the width-2 sweep of one process, bit
+    for bit."""
+    outs, want = world2
+    expect = _columns(want["mesh_oom"])
+    for got in outs["mesh_oom"]:
+        assert got["raised"] == ""
+        assert got["tried"].tolist() == [2, 1, 1]
+        assert got["retries"].tolist() == [
+            "[sweep] chunk width 4 failed on device — retrying the sweep at width 2"]
+        for k, v in expect.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_mesh_ranks_raise_together_when_one_rank_fails(world2):
+    """An error on rank 1 that is not the card's memory: every rank raises
+    (a RuntimeError naming it), none retries and none waits in a gather
+    that the failed rank never enters."""
+    outs, _ = world2
+    for got in outs["mesh_broken"]:
+        assert got["raised"] == "RuntimeError"
+        assert got["tried"].tolist() == [2]
+        assert got["retries"].tolist() == []
 
 
 def test_shard_configs_matches_mmtpu():

@@ -274,11 +274,14 @@ def _imported_modules(path):
 
 
 def test_port_sources_import_neither_jax_nor_mmtpu():
-    """Every module of the port, chip_smoke.py and the port's test workers,
-    parsed: no import of jax or mmtpu anywhere, at top level or inside a
-    function."""
+    """Every module of the port, chip_smoke.py, the port's card scripts
+    (``scripts/torch_*.py``) and its test workers, parsed: no import of jax
+    or mmtpu anywhere, at top level or inside a function."""
     paths = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tests", "_torch_parallel_worker.py")]
+    scripts = os.path.join(REPO, "scripts")
+    paths += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
+              if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(os.path.join(REPO, "mmtpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 25
