@@ -65,6 +65,8 @@ import weakref
 
 import torch
 
+from mmtpu_torch.utils.profiling import region
+
 _SIDE_STREAMS: dict = {}
 _COUNTERS: list = []
 
@@ -127,6 +129,25 @@ def fit_result(run, graphs, tree):
     leaves: list = []
     spec = _flatten(tree, leaves)
     return _unflatten(spec, iter([t.clone() for t in leaves]))
+
+
+def stream_mark(device: torch.device):
+    """A point in the queue of ``device``'s current stream: a timing event on
+    the card; off it, where the work runs as it is queued, the host's clock."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def span_s(start, end) -> float:
+    """Seconds between two :func:`stream_mark` marks, once ``end`` has
+    completed on the stream (``Graphs.warmup_marks``: the current stream
+    waits for the side stream's warm-up before its end mark)."""
+    if isinstance(start, float):
+        return end - start
+    return start.elapsed_time(end) / 1e3
 
 
 class GraphCaptureError(RuntimeError):
@@ -213,7 +234,12 @@ class Graphs:
     """The captured bodies of one owner, or of the fits a caller runs
     through it, on ``device``; ``enabled`` False (:func:`use_graphs`) runs
     every body directly.  ``capture_s``, ``warmups``, ``captures`` and
-    ``replays`` count what its graphs cost and ran."""
+    ``replays`` count what its graphs cost and ran; ``capture_s`` is the
+    host's seconds in captures, each from an idle card (the wait for the
+    work queued before it is left out).  ``warmup_marks`` holds each
+    warm-up's ``(start, end)`` :func:`stream_mark` on the current stream; under
+    a profiler each warm-up and capture is a range (``mmtpu.graphs.warmup``,
+    ``mmtpu.graphs.capture``)."""
 
     def __init__(self, device, enabled: bool):
         self.device = torch.device(device)
@@ -225,6 +251,7 @@ class Graphs:
         self._captured: dict = {}
         self._written: set = set()  # storages that replays write: carries and outputs
         self.capture_s, self.warmups, self.captures, self.replays = 0.0, 0, 0, 0
+        self.warmup_marks: list = []
 
     def __call__(self, key, body, *args, carry: bool = False):
         """``body(*args)``, warmed up, captured or replayed for ``key``."""
@@ -236,9 +263,18 @@ class Graphs:
         if entry is None and full_key not in self._seen:
             self._seen.add(full_key)
             self.warmups += 1
-            return self._on_side_stream(body, args)
+            start = stream_mark(self.device)
+            with region("mmtpu.graphs.warmup"):
+                out = self._on_side_stream(body, args)
+            self.warmup_marks.append((start, stream_mark(self.device)))
+            return out
         if entry is None:
-            entry = self._captured[full_key] = self._capture(full_key, body, leaves, carry)
+            if self.device.type == "cuda":
+                # torch.cuda.graph waits for the card as well: the wait stays
+                # out of capture_s
+                torch.cuda.synchronize(self.device)
+            with region("mmtpu.graphs.capture"):
+                entry = self._captured[full_key] = self._capture(full_key, body, leaves, carry)
             written: list = []
             _flatten(entry.outputs[0] if carry else entry.outputs, written)
             self._written.update(t.untyped_storage().data_ptr() for t in written)

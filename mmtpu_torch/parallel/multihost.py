@@ -163,5 +163,7 @@ def run_sweep_multihost(configs: Sequence[dict], prep, n_runs: int = 1, verbose:
         chunk_stats=local.chunk_stats,  # this process's chunks only
         diverged=merged["diverged"] == 1,
         phase_s=local.phase_s,
+        chunk_size=local.chunk_size,  # this process's, as its chunk_stats
+        out_of_memory_widths=local.out_of_memory_widths,
     )
 

@@ -7,12 +7,33 @@ Runs the hyperparameter grid in-process, K configs per chunk::
     python -m mmtpu_torch.sweep mosi --limit 100 --chunk_size 32
     python -m mmtpu_torch.sweep mosi --resume_dir sweep_ckpt   # crash-resumable
     python -m mmtpu_torch.sweep mosi --device cpu --limit 4    # on the CPU
+    python -m mmtpu_torch.sweep mosi --limit 64 --profile sweep_trace  # Chrome trace
     torchrun --nproc_per_node 4 -m mmtpu_torch.sweep mosi --multihost  # a shard per card
     torchrun --nproc_per_node 4 -m mmtpu_torch.sweep mosi --mesh  # each chunk over 4 cards
 
 Writes ``results/<name>.csv`` (the columns of mmtpu's: each record of
 :meth:`mmtpu_torch.sweep.runner.SweepResult.to_records` plus the config's
-grid columns) and ``results/<name>_summary.json`` (mmtpu's keys).
+grid columns) and ``results/<name>_summary.json`` (mmtpu's keys, the chunk
+width the sweep ran at, ``chunk_size``, and the wider ones that ran out of
+the card's memory first, ``out_of_memory_widths``).  Its ``chunks`` are
+``run_sweep``'s ``chunk_stats``, one per computed chunk: ``chunk``,
+``kind``, ``configs``, ``done_at_s`` (read back and saved, seconds from the
+call's start), ``graphs`` (warm-ups, captures, replays), ``device_s`` (the
+stream's seconds in each phase: train, valid_infer, test_infer, sentiment,
+metrics, from CUDA events, without a wait), ``device_warmup_s`` (the
+stream's seconds in the bucket's eager warm-ups), ``device_start_at_s``
+and ``device_end_at_s`` (on the same clock as ``done_at_s``), ``host_s``
+(prepare, capture, wait, drain), ``alloc`` (the caching allocator's
+cudaMalloc and cudaFree calls) and, with ``--phase_timing``, ``phases``
+(each phase synced).
+
+``--profile [DIR]`` (default ``mmtpu_torch_trace``) runs the sweep under
+``torch.profiler`` and writes ``DIR/trace.json`` (``trace_rank<r>.json``
+under a process group; :func:`mmtpu_torch.utils.profiling.trace`), a
+Chrome trace in which the sweep's own ranges (``mmtpu.sweep.call``,
+``mmtpu.chunk.<prepare|phase|wait|drain>``,
+``mmtpu.graphs.<warmup|capture>``) sit beside the device's kernels on the
+profiler's clock.
 
 ``--device`` defaults to ``cuda``; asking for CUDA where there is none
 raises, nothing falls back to the CPU.  One process runs per rank of a
@@ -34,6 +55,7 @@ fits run no scan to unroll.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import glob
 import json
@@ -86,7 +108,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--exact_adam", action="store_true",
                         help="dense Adam instead of the epoch-level lazy-Adam default")
     parser.add_argument("--phase_timing", action="store_true",
-                        help="record each chunk's phase seconds in the summary's chunk stats")
+                        help="record each chunk's phase seconds, the device synced after "
+                             "each, in the summary's chunk stats (the chunks then run one "
+                             "after another)")
+    parser.add_argument("--profile", metavar="DIR", nargs="?", const="mmtpu_torch_trace",
+                        help="run the sweep under torch.profiler and write a Chrome trace "
+                             "with the sweep's mmtpu.* ranges into DIR")
     parser.add_argument("--infer_clamp", action="store_true",
                         help="shrink single-batch inference fits' batch to the split's rows "
                              "(float-order deltas only)")
@@ -155,6 +182,8 @@ def _write_results(args, res, configs) -> tuple:
         "configs_per_hour": round(res.n_configs / res.wall_time_s * 3600, 1),
         "configs_per_hour_exec": round(res.n_configs / max(res.exec_time_s, 1e-9) * 3600, 1),
         "dataset": args.dataset,
+        "chunk_size": res.chunk_size,
+        "out_of_memory_widths": res.out_of_memory_widths,
         "chunks": res.chunk_stats or [],
     }
     with open(os.path.join(args.out, f"{args.name}_summary.json"), "w") as f:
@@ -220,6 +249,7 @@ def _sweep(args, configs) -> int:
     from mmtpu_torch.parallel.mesh import init_world, make_mesh, rank_device
     from mmtpu_torch.parallel.multihost import init_multihost, run_sweep_multihost
     from mmtpu_torch.sweep.runner import run_sweep
+    from mmtpu_torch.utils.profiling import trace
 
     device, mesh = args.device, None
     if args.multihost:
@@ -258,11 +288,14 @@ def _sweep(args, configs) -> int:
                     phase_timing=args.phase_timing, fused_dec_update=args.fused_dec,
                     infer_warm_start=args.infer_warm_start,
                     infer_epochs_cap=args.infer_epochs, device=device)
-    if args.multihost:
-        res = run_sweep_multihost(configs, prep, n_runs=args.n_runs, **sweep_kw)
-    else:
-        res = run_sweep(configs, prep, n_runs=args.n_runs, mesh=mesh, verbose=main_rank,
-                        **sweep_kw)
+    with trace(args.profile) if args.profile else contextlib.nullcontext():
+        if args.multihost:
+            res = run_sweep_multihost(configs, prep, n_runs=args.n_runs, **sweep_kw)
+        else:
+            res = run_sweep(configs, prep, n_runs=args.n_runs, mesh=mesh, verbose=main_rank,
+                            **sweep_kw)
+    if args.profile and main_rank:
+        print(f"[sweep] profiler trace written to {args.profile}")
     if not main_rank:
         return 0  # rank 0 writes the CSV, the summary and the artifacts
     records, _ = _write_results(args, res, configs)

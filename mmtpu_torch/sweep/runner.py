@@ -88,6 +88,7 @@ from mmtpu_torch.train.latents import LatentFitSpec, fit_latents, train_view
 from mmtpu_torch.train.sentiment import SentimentFitSpec, fit_sentiment
 from mmtpu_torch.train.warm_start import closed_form_latents_from_stats
 from mmtpu_torch.tree import tree_map
+from mmtpu_torch.utils.profiling import in_region, region
 
 
 @dataclasses.dataclass
@@ -108,8 +109,10 @@ class SweepResult:
     # built before)
     compile_time_s: float = 0.0
     settle_time_s: float = 0.0  # mmtpu's phased-mode settling: none here
-    # run_sweep: one record per computed chunk, {chunk, kind, configs,
-    # done_at_s[, phases]}
+    # run_sweep: one record per computed chunk, in the order drained: {chunk,
+    # kind, configs, done_at_s, graphs, device_s, device_warmup_s,
+    # device_start_at_s, device_end_at_s, host_s, alloc[, phases]}
+    # (run_sweep's docstring)
     chunk_stats: Optional[List[dict]] = None
     # with return_embeddings=True: {"train"/"valid"/"test": (K, N_split, D)}
     embeddings: Optional[Dict[str, np.ndarray]] = None
@@ -119,6 +122,10 @@ class SweepResult:
     # run_chunk with return_embeddings=True: the test predictions the
     # metrics score, (K, N_test[, n_out])
     predictions: Optional[np.ndarray] = None
+    # run_sweep: the chunk width it ran at, and the wider widths that ran out
+    # of the card's memory before, in the order tried
+    chunk_size: Optional[int] = None
+    out_of_memory_widths: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def exec_time_s(self) -> float:
@@ -356,19 +363,54 @@ class _Uploaded:
                    vocab=to_torch(prep.vocab_embeddings, device))
 
 
+class _Clock:
+    """The one clock of a sweep call: an anchor mark of the stream
+    (:func:`mmtpu_torch.graphs.stream_mark`) that the host waited for just
+    before ``t0``, so that a later mark's seconds from the anchor, once it
+    has completed, are its seconds since ``t0``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.anchor = graphs_mod.stream_mark(device)
+        if device.type == "cuda":
+            self.anchor.synchronize()
+        self.t0 = time.perf_counter()
+
+    def mark(self):
+        return graphs_mod.stream_mark(self.device)
+
+    def at(self, mark) -> float:
+        return graphs_mod.span_s(self.anchor, mark)
+
+
+def _alloc_counts(device: torch.device) -> np.ndarray:
+    """The caching allocator's ``cudaMalloc`` and ``cudaFree`` calls so far;
+    none off the card."""
+    if device.type != "cuda":
+        return np.zeros(2, np.int64)
+    stats = torch.cuda.memory_stats(device)
+    return np.array([stats.get("num_device_alloc", 0), stats.get("num_device_free", 0)])
+
+
 class _Queued:
     """A chunk's four phases queued on the device, with the copies of its
     results to the host queued behind them; :meth:`finish` waits for those
-    copies alone (not for work queued after them) and builds the result."""
+    copies alone (not for work queued after them) and builds the result;
+    its seconds waiting go into ``spans`` (:func:`_queue`) as ``wait_s``."""
 
     def __init__(self, host: dict, event, hp_np: Dict[str, np.ndarray], n_epochs_max: int,
-                 schema: Dict[str, tuple], t_start: float, phase_s: Dict[str, float]):
+                 schema: Dict[str, tuple], t_start: float, phase_s: Dict[str, float],
+                 spans: Optional[dict]):
         self.host, self.event, self.hp_np, self.n_epochs_max = host, event, hp_np, n_epochs_max
-        self.schema, self.t_start, self.phase_s = schema, t_start, phase_s
+        self.schema, self.t_start, self.phase_s, self.spans = schema, t_start, phase_s, spans
 
     def finish(self) -> SweepResult:
+        t0 = time.perf_counter()
         if self.event is not None:
-            self.event.synchronize()
+            with region("mmtpu.chunk.wait"):
+                self.event.synchronize()  # every mark before it has completed
+        if self.spans is not None:
+            self.spans["wait_s"] = time.perf_counter() - t0
         h, hp_np = self.host, self.hp_np
         k = len(hp_np["config_num"])
         last = np.clip(hp_np["n_epochs"] - 1, 0, self.n_epochs_max - 1)
@@ -393,76 +435,87 @@ class _Queued:
 
 def _queue(configs: Sequence[dict], prep: PreparedData, up: _Uploaded, statics: SweepStatics,
            draws: Sequence, device: torch.device, return_embeddings: bool, config_axis: bool,
-           senti_mask=None, graphs=True, phase_timing: bool = False) -> _Queued:
+           senti_mask=None, graphs=True, phase_timing: bool = False,
+           spans: Optional[dict] = None) -> _Queued:
     """Queue the four phases for ``configs`` (with the config axis, or one
     config, ``config_axis=False``, through the plain single-config inputs)
     and their results' copies to the host: the host's preparation (draws,
     packing, uploads), then the phases, with no synchronize and no read on
     the host, unless ``phase_timing`` times each phase (the device synced
-    after it).  ``graphs`` is the fits' (:func:`build_sweep_parts`)."""
+    after it).  ``graphs`` is the fits' (:func:`build_sweep_parts`).
+    ``spans``, a sweep call's record of the chunk, holds the call's
+    ``clock``: a mark of it is queued before the first phase and after
+    each, into ``spans["marks"]``, with the host's seconds before the first,
+    ``prepare_s``."""
     t_start = time.perf_counter()
-    k = len(configs)
-    hp_np = pack_configs(configs, statics)
-    p_tab = 0 if prep.pos_table is None else int(prep.pos_table.shape[-1])
-    n_out = 1 if prep.labels["train"].ndim == 1 else prep.labels["train"].shape[-1]
-    n_train = prep.sif_init["train"].shape[0]
-    n_sent = n_train if senti_mask is None else int(np.count_nonzero(senti_mask))
+    with region("mmtpu.chunk.prepare"):
+        k = len(configs)
+        hp_np = pack_configs(configs, statics)
+        p_tab = 0 if prep.pos_table is None else int(prep.pos_table.shape[-1])
+        n_out = 1 if prep.labels["train"].ndim == 1 else prep.labels["train"].shape[-1]
+        n_train = prep.sif_init["train"].shape[0]
+        n_sent = n_train if senti_mask is None else int(np.count_nonzero(senti_mask))
 
-    decs = [d.init_decoder(prep.embed_dim, prep.audio_dim + p_tab, prep.visual_dim + p_tab,
-                           statics.unimodal, prep.text_gauss_dim) for d in draws]
-    sens = [d.init_sentiment(prep.embed_dim, int(h), n_out, statics.hidden_max)
-            for d, h in zip(draws, hp_np["hidden_dims"])]
-    tperms = [d.train_permutations(n_train, statics.n_epochs_max) for d in draws]
-    sperms = [d.sentiment_permutations(n_sent, statics.n_sentiment_epochs_max) for d in draws]
-    pos_mask = np.pad(hp_np["pos_mask"], ((0, 0), (0, p_tab - hp_np["pos_mask"].shape[-1])))
-    upload = lambda a: _to_device(torch.as_tensor(a), device)  # noqa: E731
+        decs = [d.init_decoder(prep.embed_dim, prep.audio_dim + p_tab, prep.visual_dim + p_tab,
+                               statics.unimodal, prep.text_gauss_dim) for d in draws]
+        sens = [d.init_sentiment(prep.embed_dim, int(h), n_out, statics.hidden_max)
+                for d, h in zip(draws, hp_np["hidden_dims"])]
+        tperms = [d.train_permutations(n_train, statics.n_epochs_max) for d in draws]
+        sperms = [d.sentiment_permutations(n_sent, statics.n_sentiment_epochs_max) for d in draws]
+        pos_mask = np.pad(hp_np["pos_mask"], ((0, 0), (0, p_tab - hp_np["pos_mask"].shape[-1])))
+        upload = lambda a: _to_device(torch.as_tensor(a), device)  # noqa: E731
 
-    init = up.init
-    if config_axis:
-        pick = lambda key: upload(hp_np[key])  # (K,)  # noqa: E731
-        stack = lambda trees: tree_map(  # noqa: E731
-            lambda *xs: _to_device(torch.stack(xs), device), *trees)
-        dec, sen = stack(decs), stack(sens)
-        # every epoch's (K, N) permutations in one upload
-        tperm = list(_to_device(torch.stack([torch.stack([p[e] for p in tperms])
-                                             for e in range(statics.n_epochs_max)]), device))
-        sperm = list(_to_device(torch.stack([torch.stack([p[e] for p in sperms])
-                                             for e in range(statics.n_sentiment_epochs_max)]),
-                                device))
-        init = {s: v.expand(k, *v.shape) for s, v in init.items()}
-        pm = upload(pos_mask[:, None, :])  # (K, 1, P)
-    else:
-        if k != 1:
-            raise ValueError("without the config axis, one config at a time")
-        pick = lambda key: upload(hp_np[key][0])  # 0-d  # noqa: E731
-        dec = tree_map(lambda t: t.to(device), decs[0])
-        sen = tree_map(lambda t: t.to(device), sens[0])
-        tperm, sperm = tperms[0], sperms[0]
-        pm = upload(pos_mask[0])  # (P,)
-    hp = {key: pick(key) for key in ("lr", "word_loss_weight", "likelihood_weight",
-                                      "norm_code", "train_dec")}
-    hp["train_heads"] = hp["train_dec"]  # the e2e fit's freeze gates the heads only
-    s_hp = {"lr": pick("sentiment_lr"), "lr_decay": pick("lr_decay")}
-    if config_axis:
-        hp["n_epochs"], s_hp["n_epochs"] = pick("n_epochs"), pick("n_sentiment_epochs")
-    else:  # one config: the host loop reads its epoch counts
-        hp["n_epochs"] = int(hp_np["n_epochs"][0])
-        s_hp["n_epochs"] = int(hp_np["n_sentiment_epochs"][0])
-    # the configs' positional masks join the sweep's data in this chunk's dicts
-    data = {s: dict(v, pos_mask=pm) for s, v in up.data.items()} if p_tab else up.data
-    validation = (init["valid"], data["valid"]) if statics.validation_curve else None
+        init = up.init
+        if config_axis:
+            pick = lambda key: upload(hp_np[key])  # (K,)  # noqa: E731
+            stack = lambda trees: tree_map(  # noqa: E731
+                lambda *xs: _to_device(torch.stack(xs), device), *trees)
+            dec, sen = stack(decs), stack(sens)
+            # every epoch's (K, N) permutations in one upload
+            tperm = list(_to_device(torch.stack([torch.stack([p[e] for p in tperms])
+                                                 for e in range(statics.n_epochs_max)]), device))
+            sperm = list(_to_device(torch.stack([torch.stack([p[e] for p in sperms])
+                                                 for e in range(statics.n_sentiment_epochs_max)]),
+                                    device))
+            init = {s: v.expand(k, *v.shape) for s, v in init.items()}
+            pm = upload(pos_mask[:, None, :])  # (K, 1, P)
+        else:
+            if k != 1:
+                raise ValueError("without the config axis, one config at a time")
+            pick = lambda key: upload(hp_np[key][0])  # 0-d  # noqa: E731
+            dec = tree_map(lambda t: t.to(device), decs[0])
+            sen = tree_map(lambda t: t.to(device), sens[0])
+            tperm, sperm = tperms[0], sperms[0]
+            pm = upload(pos_mask[0])  # (P,)
+        hp = {key: pick(key) for key in ("lr", "word_loss_weight", "likelihood_weight",
+                                          "norm_code", "train_dec")}
+        hp["train_heads"] = hp["train_dec"]  # the e2e fit's freeze gates the heads only
+        s_hp = {"lr": pick("sentiment_lr"), "lr_decay": pick("lr_decay")}
+        if config_axis:
+            hp["n_epochs"], s_hp["n_epochs"] = pick("n_epochs"), pick("n_sentiment_epochs")
+        else:  # one config: the host loop reads its epoch counts
+            hp["n_epochs"] = int(hp_np["n_epochs"][0])
+            s_hp["n_epochs"] = int(hp_np["n_sentiment_epochs"][0])
+        # the configs' positional masks join the sweep's data in this chunk's dicts
+        data = {s: dict(v, pos_mask=pm) for s, v in up.data.items()} if p_tab else up.data
+        validation = (init["valid"], data["valid"]) if statics.validation_curve else None
 
-    parts = build_sweep_parts(statics, up.labels, up.vocab, prep.name, senti_mask, graphs)
+        parts = build_sweep_parts(statics, up.labels, up.vocab, prep.name, senti_mask, graphs)
     phase_s: Dict[str, float] = {}
+    if spans is not None:
+        spans.update(prepare_s=time.perf_counter() - t_start,
+                     marks=[("start", spans["clock"].mark())])
 
     def phase(name, fn, *args):
-        if not phase_timing:
-            return fn(*args)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        phase_s[name] = time.perf_counter() - t0
+        with region(f"mmtpu.chunk.{name}"):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if phase_timing:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                phase_s[name] = time.perf_counter() - t0
+        if spans is not None:
+            spans["marks"].append((name, spans["clock"].mark()))
         return out
 
     embed, dec2, losses, curve = phase("train", parts["train"], init["train"], dec, sen, hp,
@@ -487,7 +540,7 @@ def _queue(configs: Sequence[dict], prep: PreparedData, up: _Uploaded, statics: 
         event = torch.cuda.Event()
         event.record()
     return _Queued(host, event, hp_np, statics.n_epochs_max, metric_schema(prep), t_start,
-                   phase_s)
+                   phase_s, spans)
 
 
 def _execute(configs: Sequence[dict], prep: PreparedData, statics: SweepStatics,
@@ -519,9 +572,10 @@ def _concat(parts: Sequence[SweepResult], wall_time_s: float) -> SweepResult:
 def _queue_chunk(configs: Sequence[dict], prep: PreparedData, up: _Uploaded,
                  statics: SweepStatics, draws: Sequence, device: torch.device,
                  return_embeddings: bool, senti_mask=None, mesh=None, graphs=True,
-                 phase_timing: bool = False) -> Callable[[], SweepResult]:
-    """One chunk with the config axis, queued (:func:`_queue`); returns
-    its ``finish``.  With ``mesh``, this rank's block of the configs (with
+                 phase_timing: bool = False,
+                 spans: Optional[dict] = None) -> Callable[[], SweepResult]:
+    """One chunk with the config axis, queued (:func:`_queue`, which fills
+    ``spans`` with this rank's marks); returns its ``finish``.  With ``mesh``, this rank's block of the configs (with
     the whole chunk's statics) runs to its end and every rank's blocks are
     gathered before this returns: the gather is a collective, which every
     rank enters in the chunks' order, so the mesh's chunks are not
@@ -529,7 +583,7 @@ def _queue_chunk(configs: Sequence[dict], prep: PreparedData, up: _Uploaded,
     and every rank then raises (:func:`_raise_on_failure`)."""
     if mesh is None:
         return _queue(configs, prep, up, statics, draws, device, return_embeddings, True,
-                      senti_mask, graphs, phase_timing).finish
+                      senti_mask, graphs, phase_timing, spans).finish
     t0 = time.perf_counter()
     sharding = config_sharding(mesh)
     blk = sharding.block(len(configs))
@@ -537,7 +591,8 @@ def _queue_chunk(configs: Sequence[dict], prep: PreparedData, up: _Uploaded,
     if blk.stop > blk.start:  # more ranks than configs leave a rank none
         try:
             local = _queue(configs[blk], prep, up, statics, draws[blk], device,
-                           return_embeddings, True, senti_mask, graphs, phase_timing).finish()
+                           return_embeddings, True, senti_mask, graphs, phase_timing,
+                           spans).finish()
         except Exception as exc:  # the gather below tells every rank
             failed = exc
             local = _RankFailure(mesh.index("config"), _out_of_memory(exc), repr(exc))
@@ -727,6 +782,7 @@ class _ChunkStore:
         os.replace(self.path + ".tmp", self.path)
 
 
+@in_region("mmtpu.sweep.call")
 def run_sweep(configs: Sequence[dict], prep: PreparedData, batch_size: int = 64,
               unimodal: bool = False, seed: int = 0, chunk_size: Optional[int] = None,
               return_embeddings: bool = False, verbose: bool = True,
@@ -774,10 +830,49 @@ def run_sweep(configs: Sequence[dict], prep: PreparedData, batch_size: int = 64,
             (:func:`run_chunk`); every rank calls alike and returns the
             whole result.  Every rank reads ``checkpoint_dir``; the mesh's
             first rank alone writes it.
+
+    The result's ``chunk_stats`` holds one record per computed chunk, the
+    chunk's span of the call (named by its ``chunk`` id), on the call's one
+    clock: the call first waits for the card once (an event recorded and
+    synchronised, the one wait that the timeline adds), and its seconds
+    count from there, as ``done_at_s`` (when the chunk was read back,
+    scattered and saved) does.
+
+    - ``device_s``: the stream's seconds in each phase (``train``,
+      ``valid_infer``, ``test_infer``, ``sentiment``, ``metrics``), between
+      timing events queued before the first phase and after each, read once
+      the chunk's results are back (on the CPU, the host's seconds around
+      each phase).  A bucket's first chunk's phases hold the bucket's
+      warm-ups and captures.
+    - ``device_warmup_s``: the stream's seconds in the bucket's eager
+      warm-ups in the chunk (``Graphs.warmup_marks``), inside its phases.
+    - ``device_start_at_s``, ``device_end_at_s``: the events before the
+      train phase and after the metrics.
+    - ``host_s``: the host's seconds of the chunk's ``prepare`` (draws,
+      inits, permutations, packing and uploads, until the first phase is
+      queued), of the bucket's ``capture`` in its phases (``Graphs.capture_s``:
+      each from an idle card, with ``torch.cuda.graph``'s own
+      ``gc.collect`` and ``empty_cache``), of the ``wait`` for its results
+      and of its ``drain`` (scatter and checkpoint save).
+    - ``alloc``: the caching allocator's ``device_allocs`` (``cudaMalloc``)
+      and ``device_frees`` (``cudaFree``) while the chunk was queued and
+      drained; 0 on the CPU.
+    - ``graphs``: the bucket's warm-ups, captures and replays in the chunk;
+      ``phases``: with ``phase_timing``, the synced seconds of each phase.
+
+    Under an active ``torch.profiler`` session the call, each chunk's
+    preparation, phases, wait and drain and each warm-up and capture are
+    host ranges of the trace (``mmtpu.sweep.call``,
+    ``mmtpu.chunk.{prepare,<phase>,wait,drain}``,
+    ``mmtpu.graphs.{warmup,capture}``;
+    :func:`mmtpu_torch.utils.profiling.region`).  ``chunk_size`` is the
+    width the sweep ran at; ``out_of_memory_widths`` the wider ones that ran
+    out of the card's memory first.
     """
     _check_mesh(mesh)
     device = _device(device)
-    t0 = time.perf_counter()
+    clock = _Clock(device)  # the call's one synchronize
+    t0 = clock.t0
     compile_time = _kernel_build_s(device)
     if n_runs > 1:
         configs = [dict(c, _run_idx=r) for c in configs for r in range(n_runs)]
@@ -836,6 +931,16 @@ def run_sweep(configs: Sequence[dict], prep: PreparedData, batch_size: int = 64,
     # program per bucket); dropped once the bucket's last chunk is drained
     stores: Dict[tuple, graphs_mod.Graphs] = {}
 
+    # the allocator's counts at the last read: each chunk's queue and
+    # drain take the calls since the read before them
+    last_allocs = _alloc_counts(device)
+
+    def allocs_since() -> np.ndarray:
+        nonlocal last_allocs
+        now = _alloc_counts(device)
+        since, last_allocs = now - last_allocs, now
+        return since
+
     def queue(wi, cid, kind, ne, positions):
         chunk_cfgs = [configs[p] for p in positions]
         bucket = (kind, ne)
@@ -843,36 +948,58 @@ def run_sweep(configs: Sequence[dict], prep: PreparedData, batch_size: int = 64,
             stores[bucket] = graphs_mod.Graphs(device, graphs_mod.use_graphs(True, device))
         g = stores[bucket]
         counts = (g.warmups, g.captures, g.replays)
-        finish = _queue_chunk(chunk_cfgs, prep, up,
-                              dataclasses.replace(statics, opt_kind=kind, n_epochs_max=ne),
-                              [draws(int(c.get("config_num", 0)), int(c.get("_run_idx", 0)))
-                               for c in chunk_cfgs],
-                              device, return_embeddings, senti_mask=senti_mask, mesh=mesh,
-                              graphs=g, phase_timing=phase_timing)
+        n_warm, capture_s = len(g.warmup_marks), g.capture_s
+        # the chunk's timeline as queued: its marks and seconds (_queue),
+        # its warm-ups' marks, its captures' seconds, its allocations
+        spans = {"clock": clock}
+        finish = _queue_chunk(
+            chunk_cfgs, prep, up, dataclasses.replace(statics, opt_kind=kind, n_epochs_max=ne),
+            [draws(int(c.get("config_num", 0)), int(c.get("_run_idx", 0))) for c in chunk_cfgs],
+            device, return_embeddings, senti_mask=senti_mask, mesh=mesh, graphs=g,
+            phase_timing=phase_timing, spans=spans)
         made = {name: n - n0 for name, n, n0 in zip(
             ("warmups", "captures", "replays"), (g.warmups, g.captures, g.replays), counts)}
-        return wi, cid, kind, ne, positions, finish, made
+        spans.update(warmups=g.warmup_marks[n_warm:], capture_s=g.capture_s - capture_s,
+                     allocs=allocs_since())
+        return wi, cid, kind, ne, positions, finish, made, spans
 
     def drain(queued):
         """Chunk ``queued``'s results read back, scattered, saved and counted."""
-        wi, cid, kind, ne, positions, finish, made = queued
+        wi, cid, kind, ne, positions, finish, made, spans = queued
         res = finish()
-        arrays = {"final_train_loss": res.final_train_loss, "diverged": res.diverged,
-                  **res.metrics}
-        if "valid_curve" in arrays:  # a bucket's curve, padded to the grid's width
-            vc = arrays["valid_curve"]
-            arrays["valid_curve"] = np.pad(vc, ((0, 0), (0, statics.n_epochs_max + 1
-                                                         - vc.shape[-1])),
-                                           constant_values=np.nan)
-        if return_embeddings:
-            arrays.update({f"emb_{s}": e for s, e in res.embeddings.items()})
-        scatter(positions, arrays)
-        if store is not None and (mesh is None or mesh.is_main):
-            store.save(cid, arrays)
+        t_drain = time.perf_counter()
+        with region("mmtpu.chunk.drain"):
+            arrays = {"final_train_loss": res.final_train_loss, "diverged": res.diverged,
+                      **res.metrics}
+            if "valid_curve" in arrays:  # a bucket's curve, padded to the grid's width
+                vc = arrays["valid_curve"]
+                arrays["valid_curve"] = np.pad(vc, ((0, 0), (0, statics.n_epochs_max + 1
+                                                             - vc.shape[-1])),
+                                               constant_values=np.nan)
+            if return_embeddings:
+                arrays.update({f"emb_{s}": e for s, e in res.embeddings.items()})
+            scatter(positions, arrays)
+            if store is not None and (mesh is None or mesh.is_main):
+                store.save(cid, arrays)
+        drain_s = time.perf_counter() - t_drain
         for name, secs in res.phase_s.items():
             phase_s[name] = phase_s.get(name, 0.0) + secs
+        # a mesh rank that trained none of the chunk's configs has no timeline
+        timeline = {}
+        if "marks" in spans:
+            at = [(name, clock.at(m)) for name, m in spans["marks"]]
+            allocs = spans["allocs"] + allocs_since()
+            timeline = {
+                "device_s": {name: round(b - a, 6) for (_, a), (name, b) in zip(at, at[1:])},
+                "device_warmup_s": round(sum(graphs_mod.span_s(*m) for m in spans["warmups"]), 6),
+                "device_start_at_s": round(at[0][1], 6), "device_end_at_s": round(at[-1][1], 6),
+                "host_s": {"prepare": round(spans["prepare_s"], 6),
+                           "capture": round(spans["capture_s"], 6),
+                           "wait": round(spans["wait_s"], 6), "drain": round(drain_s, 6)},
+                "alloc": {"device_allocs": int(allocs[0]), "device_frees": int(allocs[1])}}
         chunk_stats.append({"chunk": cid, "kind": kind, "configs": len(positions),
                             "done_at_s": round(time.perf_counter() - t0, 2), "graphs": made,
+                            **timeline,
                             **({"phases": {k: round(v, 3) for k, v in res.phase_s.items()}}
                                if phase_timing else {})})
         if last_of[(kind, ne)] == wi:
@@ -924,16 +1051,18 @@ def run_sweep(configs: Sequence[dict], prep: PreparedData, batch_size: int = 64,
         if verbose:
             print(f"[sweep] chunk width {chunk} failed on device — "
                   f"retrying the sweep at width {chunk // 2}")
-        return run_sweep(configs, prep, batch_size=batch_size, unimodal=unimodal, seed=seed,
-                         chunk_size=chunk // 2, return_embeddings=return_embeddings,
-                         verbose=verbose, checkpoint_dir=checkpoint_dir,
-                         senti_mask=senti_mask, validation_curve=validation_curve,
-                         lazy_adam=statics.lazy_adam, phase_timing=phase_timing,
-                         infer_batch_clamp=infer_batch_clamp,
-                         fused_dec_update=fused_dec_update,
-                         infer_warm_start=infer_warm_start,
-                         infer_epochs_cap=infer_epochs_cap, device=device, draws=draws,
-                         mesh=mesh)
+        res = run_sweep(configs, prep, batch_size=batch_size, unimodal=unimodal, seed=seed,
+                        chunk_size=chunk // 2, return_embeddings=return_embeddings,
+                        verbose=verbose, checkpoint_dir=checkpoint_dir,
+                        senti_mask=senti_mask, validation_curve=validation_curve,
+                        lazy_adam=statics.lazy_adam, phase_timing=phase_timing,
+                        infer_batch_clamp=infer_batch_clamp,
+                        fused_dec_update=fused_dec_update,
+                        infer_warm_start=infer_warm_start,
+                        infer_epochs_cap=infer_epochs_cap, device=device, draws=draws,
+                        mesh=mesh)
+        res.out_of_memory_widths.insert(0, chunk)
+        return res
 
     return SweepResult(
         config_nums=np.asarray([c.get("config_num", i) for i, c in enumerate(configs)]),
@@ -948,4 +1077,5 @@ def run_sweep(configs: Sequence[dict], prep: PreparedData, batch_size: int = 64,
                     if return_embeddings else None),
         diverged=diverged,
         phase_s=phase_s,
+        chunk_size=chunk,
     )

@@ -7,6 +7,9 @@ logs (``simplesif.py:64,144``) and the ``--time_test`` timing
 - :func:`trace`, a context manager around ``torch.profiler`` that writes a
   Chrome trace (``chrome://tracing``, Perfetto) naming the host ops and, on
   the card, the device kernels (K1's and K2's among them);
+- :func:`region`, a named host range of the program (``mmtpu.<layer>.<what>``)
+  in the trace of an active profiler session, and nothing without one
+  (:func:`in_region`: a function's whole call as such a range);
 - :class:`StepTimer`, steady-state step timing with warm-up calls left out;
   the card's queued work is waited for (``torch.cuda.synchronize()``)
   before a step's clock stops, in the ``with`` form and in ``time_fn``.
@@ -15,6 +18,7 @@ logs (``simplesif.py:64,144``) and the ``--time_test`` timing
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import List
@@ -39,6 +43,33 @@ def trace(log_dir: str = "mmtpu_torch_trace"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"trace{suffix}.json"))
+
+
+# a function-scope range: a user range (``torch.profiler.record_function``)
+# also puts a span on the device's rows over the kernels launched inside it,
+# which a reader of the trace would count as device work
+_Range = torch._C._profiler._RecordFunctionFast
+
+
+def region(name: str):
+    """A host range ``name`` in the trace of an active ``torch.profiler``
+    session, on the profiler's clock (so that the device's idle gaps can be
+    placed in a phase of the program); without a session, a no-op that
+    costs one check."""
+    if torch.autograd._profiler_enabled():
+        return _Range(name)
+    return contextlib.nullcontext()
+
+
+def in_region(name: str):
+    """Decorator: each call of the function is the :func:`region` ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with region(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def _wait(out) -> None:

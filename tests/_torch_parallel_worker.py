@@ -120,9 +120,10 @@ def run_mesh_sweep(case):
     """``run_sweep`` over a config mesh of every rank, the part of rank
     ``fail_rank`` failing (``error`` "oom": out of memory, else a
     ``ValueError``) in every chunk whose block there is wider than
-    ``fail_above`` configs.  Returns the result (none if the sweep raised),
-    the block widths this rank queued, the retry lines it printed and the
-    name of the error it raised ("" if none)."""
+    ``fail_above`` configs.  Returns the result (none if the sweep raised)
+    with the width it ran at and the widths that ran out of memory, the
+    block widths this rank queued, the retry lines it printed and the name
+    of the error it raised ("" if none)."""
     import contextlib
     import io
 
@@ -144,8 +145,10 @@ def run_mesh_sweep(case):
     out, raised = {}, ""
     try:
         with contextlib.redirect_stdout(printed):
-            out = _result(srunner.run_sweep(case["configs"], prep, mesh=make_mesh(),
-                                            device="cpu", verbose=True, **case["kw"]))
+            res = srunner.run_sweep(case["configs"], prep, mesh=make_mesh(), device="cpu",
+                                    verbose=True, **case["kw"])
+        out = dict(_result(res), width=[res.chunk_size],
+                   out_of_memory_widths=res.out_of_memory_widths)
     except Exception as exc:
         raised = type(exc).__name__
     finally:

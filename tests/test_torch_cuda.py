@@ -791,3 +791,48 @@ def test_pom_chunk_at_long_rows_matches_cpu(cuda_device):
     for name, v in cpu.metrics.items():
         assert v.shape == (3, 17)
         np.testing.assert_allclose(card.metrics[name], v, atol=2e-4, err_msg=name)
+
+
+def _timeline_sweep(dev, phase_timing: bool):
+    """Two chunks of three Adam configs of the grid at MIN_EPOCHS epochs (the
+    first captures the bucket's train and inference fits, the second
+    replays them) on a small MOSI-like set of 160 train rows, batch 8."""
+    from mmtpu_torch.config import make_grid
+    from mmtpu_torch.data.pipeline import prepare_device_data
+    from mmtpu_torch.data.synthetic import synthesize_dataset
+    from mmtpu_torch.sweep.runner import run_sweep
+
+    configs = [dict(c, n_epochs=MIN_EPOCHS, n_sentiment_epochs=2) for c in make_grid()
+               if c["optimizer"] == "adam"][:6]
+    dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+    prep = prepare_device_data(synthesize_dataset(
+        "mosi", n_train=160, n_valid=10, n_test=12, vocab_size=100, embed_dim=16, audio_dim=6,
+        visual_dim=5), pos_mode="shared", pos_dims=dims)
+    return run_sweep(configs, prep, batch_size=8, chunk_size=3, verbose=False, device=dev,
+                     phase_timing=phase_timing).chunk_stats
+
+
+@pytest.mark.cuda
+def test_sweep_timeline_events_on_the_card(cuda_device):
+    """A sweep's chunk timeline from CUDA events: in a phase-timed call each
+    chunk's train phase between its events is within 2 % of its host-synced
+    seconds; in a pipelined call the second chunk starts on the stream no
+    earlier than the first ends (1 ms of rounding), the first chunk's
+    warm-ups took stream seconds and its captures host seconds and the
+    second's none, and each chunk's phases fill its interval and hold its
+    warm-ups."""
+    timed = _timeline_sweep(cuda_device, phase_timing=True)
+    for c in timed:
+        assert c["device_s"]["train"] == pytest.approx(c["phases"]["train"], rel=0.02), c
+    first, second = _timeline_sweep(cuda_device, phase_timing=False)
+    assert second["device_start_at_s"] >= first["device_end_at_s"] - 1e-3
+    assert first["graphs"]["captures"] > 0 and first["host_s"]["capture"] > 0
+    assert first["graphs"]["warmups"] > 0 and first["device_warmup_s"] > 0
+    assert second["graphs"]["captures"] == 0 and second["host_s"]["capture"] == 0
+    assert second["graphs"]["warmups"] == 0 and second["device_warmup_s"] == 0
+    for c in (first, second):
+        busy = sum(c["device_s"].values())
+        assert c["device_warmup_s"] <= busy <= (c["device_end_at_s"] - c["device_start_at_s"]
+                                                + 1e-5)
+        assert 0 <= c["device_start_at_s"] <= c["device_end_at_s"] <= c["done_at_s"] + 0.005
+        assert min(c["alloc"].values()) >= 0

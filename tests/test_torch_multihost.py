@@ -117,6 +117,8 @@ def test_mesh_ranks_retry_together_when_one_rank_runs_out_of_memory(world2):
         assert got["tried"].tolist() == [2, 1, 1]
         assert got["retries"].tolist() == [
             "[sweep] chunk width 4 failed on device — retrying the sweep at width 2"]
+        assert got["width"].tolist() == [2]
+        assert got["out_of_memory_widths"].tolist() == [4]
         for k, v in expect.items():
             np.testing.assert_array_equal(got[k], v, err_msg=k)
 

@@ -249,13 +249,37 @@ def test_cli_writes_mmtpu_columns(tmp_path, tiny_registry, references):
     with open(tmp_path / "results" / "cli_summary.json") as f:
         summary = json.load(f)
     assert set(summary) == {"n_configs", "wall_time_s", "compile_time_s", "exec_time_s",
-                            "configs_per_hour", "configs_per_hour_exec", "dataset", "chunks"}
+                            "configs_per_hour", "configs_per_hour_exec", "dataset",
+                            "chunk_size", "out_of_memory_widths", "chunks"}
     assert summary["n_configs"] == 6 and all("phases" in c for c in summary["chunks"])
+    assert (summary["chunk_size"], summary["out_of_memory_widths"]) == (2, [])
+    assert all({"device_s", "device_warmup_s", "device_start_at_s", "device_end_at_s",
+                "host_s", "alloc"} <= set(c) for c in summary["chunks"])
     first = (tmp_path / "results" / "cli.csv").read_bytes()
     assert cli_main(argv) == 0
     with open(tmp_path / "results" / "cli_summary.json") as f:
         assert json.load(f)["chunks"] == []
     assert (tmp_path / "results" / "cli.csv").read_bytes() == first
+
+
+def test_cli_profile_writes_the_sweep_ranges(tmp_path, tiny_registry, capsys):
+    """``--profile DIR``: the sweep runs under ``torch.profiler`` and its
+    Chrome trace holds the sweep's ranges."""
+    argv = ["mosi", "--limit", "1", "--batch_size", "8", "--device", "cpu", "--data_dir",
+            str(tmp_path / "nodata"), "--out", str(tmp_path / "results"), "--name", "prof",
+            "--profile", str(tmp_path / "trace")]
+    import mmtpu_torch.config as tconfig
+
+    grid = tconfig.make_grid
+    with pytest.MonkeyPatch.context() as mp:  # one config of 2 epochs
+        mp.setattr(tconfig, "make_grid", lambda: [dict(c, n_epochs=2, n_sentiment_epochs=2)
+                                                  for c in grid()[:1]])
+        assert cli_main(argv) == 0
+    assert f"profiler trace written to {tmp_path / 'trace'}" in capsys.readouterr().out
+    with open(tmp_path / "trace" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"mmtpu.sweep.call", "mmtpu.chunk.prepare", "mmtpu.chunk.train",
+            "mmtpu.chunk.drain"} <= names
 
 
 @pytest.mark.parametrize("flags,error,match", [

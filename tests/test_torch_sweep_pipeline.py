@@ -21,8 +21,14 @@ for bit.
   ``return_embeddings``, the validation curve, two buckets, a ragged chunk
   and a resume.
 - A failure while chunk k+1 is queued leaves chunk k saved.
+- Each chunk's timeline in ``chunk_stats`` (its phases' seconds, its
+  interval on the call's clock, the host's seconds and the allocator's
+  calls), pipelined and phase-timed, and the program's ranges, which only
+  a profiler session enters.
 """
 
+import collections
+import contextlib
 import json
 
 import numpy as np
@@ -34,6 +40,7 @@ import mmtpu_torch.train.latents as tl
 import mmtpu_torch.train.sentiment as ts
 from mmtpu_torch.sweep.runner import SweepDraws, run_chunk, run_sweep
 from mmtpu_torch.train import e2e as te2e
+from mmtpu_torch.utils import profiling
 from tests.test_torch_graphs import (ReplayOnCpu, _assert_bit_equal, _config_axis_inputs,
                                      _e2e_inputs, _hp, _sentiment_inputs)
 from tests.test_torch_sweep import BATCH, one_torch_thread, tiny_prep  # noqa: F401
@@ -217,3 +224,80 @@ def test_failure_while_queueing_saves_the_chunk_before(prep, shared, tmp_path):
     resumed = _sweep(prep, configs, checkpoint_dir=str(tmp_path))
     assert [c["chunk"] for c in resumed.chunk_stats] == ["adam3_1"]
     _assert_same(resumed, whole)
+
+
+PHASES = ("train", "valid_infer", "test_infer", "sentiment", "metrics")
+
+
+@pytest.mark.parametrize("phase_timing", [False, True], ids=["pipelined", "phase_timing"])
+def test_chunk_timeline(prep, shared, phase_timing):
+    """Two buckets (chunks adam3_0, adam3_1, sgd3_0), pipelined or each chunk
+    to its end: every chunk's record holds its five phases' seconds, its
+    interval on the call's clock, which the phases fill and which starts
+    no earlier than the chunk before ends, the warm-ups' stream seconds and
+    the host's seconds (warm-ups and captures inside the phases, none where
+    the chunk made none) and the allocator's calls (none on the CPU), all
+    read before the record's ``done_at_s``."""
+    res = _sweep(prep, bucket_configs(4) + bucket_configs(2, optimizer="sgd", first=4),
+                 phase_timing=phase_timing)
+    stats = res.chunk_stats
+    assert [c["chunk"] for c in stats] == ["adam3_0", "adam3_1", "sgd3_0"]
+    for c in stats:
+        assert tuple(c["device_s"]) == PHASES
+        assert list(c["host_s"]) == ["prepare", "capture", "wait", "drain"]
+        assert c["alloc"] == {"device_allocs": 0, "device_frees": 0}
+        assert min(c["device_s"].values()) >= 0 and min(c["host_s"].values()) >= 0
+        start, end = c["device_start_at_s"], c["device_end_at_s"]
+        assert 0 <= start <= end <= c["done_at_s"] + 0.005
+        assert sum(c["device_s"].values()) <= end - start + 5e-6
+        assert sum(c["device_s"].values()) >= c["device_warmup_s"] + c["host_s"]["capture"]
+        assert (c["device_warmup_s"] > 0) == (c["graphs"]["warmups"] > 0), c["chunk"]
+        assert (c["host_s"]["capture"] > 0) == (c["graphs"]["captures"] > 0), c["chunk"]
+        assert ("phases" in c) == phase_timing
+    assert [c["graphs"]["captures"] > 0 for c in stats] == [True, False, True]
+    for before, after in zip(stats, stats[1:]):
+        assert after["device_start_at_s"] >= before["device_end_at_s"]
+    assert res.chunk_size == 2 and res.out_of_memory_widths == []
+
+
+@pytest.mark.parametrize("profiled", [False, True], ids=["no_profiler", "profiler"])
+def test_ranges_only_under_a_profiler(prep, shared, monkeypatch, profiled):
+    """Without a profiler session the sweep enters no range; under one, the
+    call, each chunk's preparation, phases and drain and each warm-up and
+    capture are ranges named ``mmtpu.*`` (none ``span:*``, the benchmark's
+    own), each nested in the call, the graphs' inside a phase.  One chunk of
+    two epochs (the first warms each key up, the second captures it)."""
+    entered = []
+
+    def counting(name):
+        entered.append(name)
+        return real(name)
+
+    real = profiling._Range
+    monkeypatch.setattr(profiling, "_Range", counting)
+    session = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+               if profiled else contextlib.nullcontext())
+    with session as prof:
+        res = _sweep(prep, [dict(c, n_epochs=2, n_sentiment_epochs=2)
+                            for c in bucket_configs(2)])
+    if not profiled:
+        assert entered == []
+        return
+    ours = [e for e in prof.events() if e.name.startswith("mmtpu.")]
+    names = collections.Counter(e.name for e in ours)
+    assert names == collections.Counter(entered)
+    made = res.chunk_stats[0]["graphs"]
+    assert made["captures"] > 0
+    assert names == collections.Counter(
+        {"mmtpu.sweep.call": 1, "mmtpu.chunk.prepare": 1, "mmtpu.chunk.drain": 1,
+         **{f"mmtpu.chunk.{p}": 1 for p in PHASES},
+         "mmtpu.graphs.warmup": made["warmups"], "mmtpu.graphs.capture": made["captures"]})
+    assert not any(e.name.startswith("span:") for e in prof.events())
+    for e in ours:
+        chain = [e.name]
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+            chain.append(e.name)
+        assert chain[-1] == "mmtpu.sweep.call", chain
+        if chain[0].startswith("mmtpu.graphs."):
+            assert {f"mmtpu.chunk.{p}" for p in PHASES} & set(chain), chain

@@ -212,7 +212,8 @@ def test_sweep_retries_at_half_width_on_out_of_memory(where, retry_prep, monkeyp
     """Chunks of 4 fail (out of memory): the sweep reruns whole at width 2,
     says so as mmtpu does, and equals the sweep run at width 2 bit for bit;
     ``n_runs`` is not applied twice; an earlier chunk saved at width 4 is
-    abandoned (the checkpoint state keys on the width)."""
+    abandoned (the checkpoint state keys on the width).  The result names
+    the width it ran at and the width that ran out of memory."""
     configs = grid("adam", k=2, n_epochs=(2, 2))
     want = _sweep(configs, retry_prep, chunk_size=2, n_runs=2, verbose=False)
     tried = _failing_above(monkeypatch, 2, where)
@@ -222,6 +223,8 @@ def test_sweep_retries_at_half_width_on_out_of_memory(where, retry_prep, monkeyp
     assert tried == [4, 2, 2]
     assert [s["configs"] for s in got.chunk_stats] == [2, 2]
     assert got.n_configs == 4
+    assert (got.chunk_size, got.out_of_memory_widths) == (2, [4])
+    assert (want.chunk_size, want.out_of_memory_widths) == (2, [])
     _assert_same(got, want)
 
 
@@ -271,4 +274,5 @@ def test_sweep_retry_abandons_chunks_saved_at_the_old_width(retry_prep, monkeypa
     with open(tmp_path / "sweep_state.json") as f:
         state = json.load(f)
     assert state["chunk"] == 2 and len(state["chunks"]) == 3
+    assert (got.chunk_size, got.out_of_memory_widths) == (2, [4])
     _assert_same(got, want)
