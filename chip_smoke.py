@@ -189,6 +189,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    width-halving retry forced by a memory fraction (widths 32 then 16,
    every result finite, the fraction restored); ``python -m
    mmtpu_torch.sweep pom`` and ``iemocap`` on a small ``--configs_dir``.
+   Every ``run_experiment`` path here launches the token kernels once a step
+   each way (``dot_prod`` too, where K1 does not run), and the POM sweep and
+   chunk once a step each way, as K1;
+22. the token kernels (``mmtpu_torch/kernels/token_dots.py``, runs right
+   after phase 3) against their plain twins at ``TOKEN_SHAPES``: POM's
+   training step and inference fits, MOSI's 20-token rows; int64 and int32
+   ids, one launch each per call, two calls bit for bit equal; kernel and
+   twin device ms and the bounds at each shape.  Phases 4, 5, 8 and 9 hold
+   them to at least one launch per step each way, phase 10 to one per step,
+   phase 15 and phase 20's alternating and sentiment fits to none.
 
 Each phase prints its wall seconds (``[time]``).  Phase 3 also holds K2 with
 the config axis (``K2_BATCHED_SHAPES``, per-config
@@ -197,7 +207,7 @@ times it at the fused chunk's shape, beside 32 2-D calls, one per config slice
 of the same inputs, timed as one burst.  Phases 8-18 run inside the temporary
 directory of phases 4-6, before phase 7, and phases 20 and 21 after phase
 18 in it; phase 19 runs last.  Around each path
-of phases 4-6 and 8-21 the kernel launch counts are set to 0 just before and read just after
+of phases 4-6 and 8-21 the kernel launch counts (K1, K2 and the token kernels) are set to 0 just before and read just after
 (phases 12, 17 and 18 in the processes that run them).  The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -278,6 +288,17 @@ FUSED_PRED_ATOL = 5e-4
 # from each.  SGD has no such step: an SGD chunk's embeddings are held at
 # SWEEP_ATOL everywhere.
 ADAM_EMB_OVER_SHARE, ADAM_EMB_MAX_LR = 1e-4, 8.0
+# phase 22: the token kernels at the fits' shapes, (rows, latents per row M,
+# tokens per row, vocabulary, bursts of timed calls): POM's training step
+# (a width-32 chunk's 2048 rows, M = 1) and its inference fits (203 test and
+# 100 valid rows, M = 32 configs), MOSI's 20-token rows in training and at
+# a 512-row inference block; against the plain twin at rtol 1e-5 (atol 1e-5
+# on the dots, 1e-4 on the latent gradients: sums of up to 1357 terms in
+# another order), as tests/test_torch_cuda.py holds them
+TOKEN_SHAPES = {"pom_train": (2048, 1, 1357, 9206, 10), "pom_infer_b203": (203, 32, 1357, 9206, 20),
+                "pom_infer_b100": (100, 32, 1357, 9206, 20),
+                "mosi_train": (2048, 1, 20, 3016, 50), "mosi_infer_b512": (512, 32, 20, 3016, 50)}
+TOKEN_RTOL, TOKEN_FWD_ATOL, TOKEN_BWD_ATOL = 1e-5, 1e-5, 1e-4
 # phase 13: the closed form on the card against the CPU (the CPU parity
 # tests' tolerance against mmtpu); the server's ladder, a request above it,
 # and the server's raw, stats and padded answers held to each other at
@@ -665,13 +686,89 @@ def _k2_device_kernels(torch, fns: dict) -> dict:
 
 
 def _reset_launches(K, T) -> None:
+    import mmtpu_torch.kernels.token_dots as TD
+
     K.LAUNCHES.update(fwd=0, bwd=0)
     T.LAUNCHES.update(adam=0, sgd=0)
+    TD.LAUNCHES.update(fwd=0, bwd=0)
 
 
 def _read_launches(K, T) -> dict:
+    import mmtpu_torch.kernels.token_dots as TD
+
     return {"k1_fwd": K.LAUNCHES["fwd"], "k1_bwd": K.LAUNCHES["bwd"],
-            "k2_adam": T.LAUNCHES["adam"], "k2_sgd": T.LAUNCHES["sgd"]}
+            "k2_adam": T.LAUNCHES["adam"], "k2_sgd": T.LAUNCHES["sgd"],
+            "tok_fwd": TD.LAUNCHES["fwd"], "tok_bwd": TD.LAUNCHES["bwd"]}
+
+
+def _token_case(torch, dev, gen, rows, m, n_tok, v, d=300) -> tuple:
+    """The token term's inputs at one shape: ``(R, M, D)`` normal latents, a
+    unit-norm ``(V, D)`` vocabulary, ``(R, L)`` int64 ids with a zero-padded
+    tail and the last word repeated in every row, an ``(R, M, L)`` normal
+    cotangent."""
+    lat = torch.randn(rows, m, d, generator=gen)
+    voc = torch.randn(v, d, generator=gen)
+    voc = voc / torch.linalg.vector_norm(voc, dim=-1, keepdim=True)
+    ids = torch.randint(1, v, (rows, n_tok), generator=gen)
+    ids[:, n_tok // 2:] = 0
+    ids[:, :min(n_tok, 8)] = v - 1
+    g = torch.randn(rows, m, n_tok, generator=gen)
+    return lat.to(dev), voc.to(dev), ids.to(dev), g.to(dev)
+
+
+def _token_bounds(rows: int, m: int, n_tok: int, v: int, d: int = 300) -> dict:
+    """The token kernels' bounds: two operations per (row, latent, token,
+    depth) each way; the ids, the latents or the cotangent and the output
+    moved once, and each word vector read once (the table stays in L2)."""
+    ids, lat, dots, voc = 8 * rows * n_tok, 4 * rows * m * d, 4 * rows * m * n_tok, 4 * v * d
+    ops = 2 * rows * m * n_tok * d
+    return {"fwd": bound_ms(ops, ids + lat + dots + voc),
+            "bwd": bound_ms(ops, ids + dots + lat + voc)}
+
+
+def check_token_kernels(torch, dev) -> dict:
+    """Phase 22: the token kernels at ``TOKEN_SHAPES`` against their plain
+    twins (int64 and int32 ids), one launch each per call, a second call bit
+    for bit equal; device ms of kernel and twin per call, and the bounds."""
+    import mmtpu_torch.kernels.token_dots as TD
+    from mmtpu_torch.ops.wordprob import token_dots_plain, token_dots_plain_bwd
+
+    gen = torch.Generator().manual_seed(22)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0, "times": {}, "bounds": {}}
+    for tag, (rows, m, n_tok, v, reps) in TOKEN_SHAPES.items():
+        lat, voc, ids, g = _token_case(torch, dev, gen, rows, m, n_tok, v)
+        want = {"fwd": token_dots_plain(lat, voc, ids), "bwd": token_dots_plain_bwd(g, voc, ids)}
+        for ids_t in (ids, ids.int()):
+            before = dict(TD.LAUNCHES)
+            got = [{"fwd": TD.token_dots_fwd(lat, voc, ids_t),
+                    "bwd": TD.token_dots_bwd(g, voc, ids_t)} for _ in range(2)]
+            torch.cuda.synchronize()
+            if TD.LAUNCHES != {k: n + 2 for k, n in before.items()}:
+                raise AssertionError(f"token kernels at {tag}: launches {before} -> "
+                                     f"{dict(TD.LAUNCHES)}, expected two each")
+            for kind, atol in (("fwd", TOKEN_FWD_ATOL), ("bwd", TOKEN_BWD_ATOL)):
+                err = (got[0][kind] - want[kind]).abs()
+                over = (err - TOKEN_RTOL * want[kind].abs()).max().item()
+                same = torch.equal(got[0][kind], got[1][kind])
+                out[f"{kind}_err"] = max(out[f"{kind}_err"], err.max().item())
+                log(f"[token] {tag} (R={rows} M={m} L={n_tok} V={v}, {ids_t.dtype}) {kind}: "
+                    f"max abs {err.max().item():.3e}, max abs over rtol {over:.3e} (atol "
+                    f"{atol}); repeat bit-equal {same}")
+                if not over < atol:
+                    raise AssertionError(f"token kernel {kind} disagrees with its twin at {tag}")
+                if not same:
+                    raise AssertionError(f"token kernel {kind} differs between two calls at {tag}")
+        fns = {"fwd": lambda: TD.token_dots_fwd(lat, voc, ids),
+               "fwd_plain": lambda: token_dots_plain(lat, voc, ids),
+               "bwd": lambda: TD.token_dots_bwd(g, voc, ids),
+               "bwd_plain": lambda: token_dots_plain_bwd(g, voc, ids)}
+        t = out["times"][tag] = {k: _device_ms(torch, f, reps=reps) for k, f in fns.items()}
+        b = out["bounds"][tag] = _token_bounds(rows, m, n_tok, v)
+        log(f"[token] {tag} device ms: fwd kernel {t['fwd']:.4f} plain {t['fwd_plain']:.4f} "
+            f"bound {b['fwd'][0]:.5f} ({b['fwd'][1]}); bwd kernel {t['bwd']:.4f} plain "
+            f"{t['bwd_plain']:.4f} bound {b['bwd'][0]:.5f} ({b['bwd'][1]})")
+        del lat, voc, ids, g, want, got, fns
+    return out
 
 
 def smoke_config(e2e: bool) -> dict:
@@ -748,7 +845,7 @@ def run_cli_path(torch, K, T, tmp: str, e2e: bool, flags=(), tag=None, **cfg_ove
     if not (np.isfinite(losses).all() and np.isfinite(post).all()):
         raise AssertionError(f"non-finite loss or embeddings: losses {losses}")
     steps = N_EPOCHS * STEPS_PER_EPOCH
-    for k in ("k1_fwd", "k1_bwd"):
+    for k in ("k1_fwd", "k1_bwd", "tok_fwd", "tok_bwd"):
         if launches[k] < steps:
             raise AssertionError(f"{k} launched {launches[k]} times in the {tag} path, "
                                  f"expected at least {steps}")
@@ -1040,6 +1137,9 @@ def run_sweep_chunk(torch, K, T, tmp: str) -> dict:
                                  f"{k * 64}, {infer_steps} at {k * 512})")
     if launches["k2_adam"] or launches["k2_sgd"]:
         raise AssertionError(f"K2 launched in the chunk: {launches}")
+    if launches["tok_fwd"] != len(want_rows) or launches["tok_bwd"] != len(want_rows):
+        raise AssertionError(f"token kernels launched {launches} in the chunk, expected "
+                             f"{len(want_rows)} each (one per step, as K1)")
 
     ok = ~chunk.diverged
     log(f"[sweep] diverged: {int(chunk.diverged.sum())} of {k} "
@@ -1634,7 +1734,8 @@ def run_alternating(torch, K, T, tmp: str) -> dict:
         f"{secs / ALT_EPOCHS:.4f} s/epoch on the card; launches {launches}; epoch losses "
         f"{[round(x, 4) for x in losses.tolist()]}; against the CPU: losses max rel "
         f"{loss_rel:.3e}, latents max abs {lat_abs:.3e}")
-    if launches != {"k1_fwd": steps, "k1_bwd": 0, "k2_adam": 0, "k2_sgd": 0}:
+    if launches != {"k1_fwd": steps, "k1_bwd": 0, "k2_adam": 0, "k2_sgd": 0, "tok_fwd": 0,
+                    "tok_bwd": 0}:
         raise AssertionError(f"the alternating fit launched {launches}, expected K1-fwd {steps}")
     if not (torch.isfinite(losses).all() and torch.isfinite(lat).all()
             and loss_rel < ALT_LOSS_RTOL and lat_abs < ALT_LAT_ATOL):
@@ -2587,8 +2688,9 @@ def run_pom_sweeps(torch, K, T, dev) -> dict:
             g["warmups"] or g["captures"] or not g["replays"] for g in later):
         raise AssertionError(f"a later chunk of the POM bucket did not only replay: {stats}")
     want = len(stats) * per_chunk
-    if launches["k1_fwd"] != want or launches["k1_bwd"] != want:
-        raise AssertionError(f"K1 launched {launches} in the POM sweep, expected {want} each")
+    if any(launches[k] != want for k in ("k1_fwd", "k1_bwd", "tok_fwd", "tok_bwd")):
+        raise AssertionError(f"K1 and the token kernels launched {launches} in the POM sweep, "
+                             f"expected {want} each")
     if not _finite_result(sweep) or sweep.metrics["mae"].shape != (POM_SWEEP_K, 17):
         raise AssertionError("the POM sweep has a non-finite result or a wrong metric shape")
     out["sweep"] = {"wall_s": wall, "chunks": stats, "launches": launches, "peak": mem8}
@@ -2608,7 +2710,8 @@ def run_pom_sweeps(torch, K, T, dev) -> dict:
         f"{mem32['allocated_gib']:.2f} GiB allocated, {mem32['reserved_gib']:.2f} GiB reserved "
         f"(the train fit's {POM_WIDE_K * 64} rows and the inference fits' {POM_WIDE_K * 512} "
         f"rows of {POM_GEOMETRY['text_len']} tokens); finite {_finite_result(chunk)}")
-    if not _finite_result(chunk) or launches["k1_fwd"] != per_chunk:
+    if not _finite_result(chunk) or any(launches[k] != per_chunk for k in (
+            "k1_fwd", "k1_bwd", "tok_fwd", "tok_bwd")):
         raise AssertionError(f"the width-{POM_WIDE_K} POM chunk: finite "
                              f"{_finite_result(chunk)}, launches {launches}")
     out["wide_chunk"] = {"wall_s": wall, "phase_s": chunk.phase_s, "launches": launches,
@@ -2617,11 +2720,13 @@ def run_pom_sweeps(torch, K, T, dev) -> dict:
 
     # the retry, eager (RETRY_EPOCHS; a captured fit's graphs keep a pool
     # each, whose reserved memory hardly depends on the width).  The
-    # fraction caps the reserved memory, and an eager sweep needs about its
+    # fraction caps the reserved memory.  An eager sweep fits under its
     # reserved peak from an empty cache (its blocks fragment: width 16 can
     # fail under a cap a little below its reserved peak, though that is far
-    # above what it allocates).  So the limit is halfway between the
-    # reserved peaks of the same sweep at width 16 and at width 32
+    # above what it allocates), and none fits under its allocated peak; so
+    # the limit is halfway between width 16's reserved peak and width 32's
+    # allocated peak (width 32 fits under a cap halfway between the two
+    # reserved peaks: 3.4 GiB reserved, 1.8 allocated on an H100)
     half = POM_WIDE_K // 2
     retry_cfgs = [dict(c, n_epochs=RETRY_EPOCHS, n_sentiment_epochs=RETRY_EPOCHS) for c in wide]
     peaks = {}
@@ -2629,7 +2734,10 @@ def run_pom_sweeps(torch, K, T, dev) -> dict:
         _fresh_peak(torch, dev)
         run_sweep(retry_cfgs, prep, chunk_size=width, device=dev, verbose=False)
         peaks[width] = _memory(torch, dev)
-    lo, hi = peaks[half]["reserved_gib"], peaks[POM_WIDE_K]["reserved_gib"]
+    lo, hi = peaks[half]["reserved_gib"], peaks[POM_WIDE_K]["allocated_gib"]
+    if not lo < hi:
+        raise AssertionError(f"no memory cap can force the retry: width {half} reserved "
+                             f"{lo:.3f} GiB, width {POM_WIDE_K} allocated {hi:.3f}")
     limit = (lo + hi) / 2
     total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
     _fresh_peak(torch, dev)
@@ -2652,9 +2760,9 @@ def run_pom_sweeps(torch, K, T, dev) -> dict:
         f"under a memory limit of {limit:.3f} GiB of {total:.2f} (fraction "
         f"{limit / total:.5f}; the same sweep unlimited peaked at width {half} "
         f"{peaks[half]['allocated_gib']:.3f} GiB allocated, {lo:.3f} reserved, and at width "
-        f"{POM_WIDE_K} {peaks[POM_WIDE_K]['allocated_gib']:.3f} allocated, {hi:.3f} reserved: "
-        f"the limit is {limit - lo:.3f} GiB above the one and {hi - limit:.3f} below the "
-        f"other): printed {lines}; widths tried {widths}, chunks run at {ran}; wall "
+        f"{POM_WIDE_K} {hi:.3f} allocated, {peaks[POM_WIDE_K]['reserved_gib']:.3f} reserved: "
+        f"the limit is {limit - lo:.3f} GiB above the one's reserved and {hi - limit:.3f} "
+        f"below the other's allocated): printed {lines}; widths tried {widths}, chunks run at {ran}; wall "
         f"{wall:.3f} s (CPU workers running); peak {mem['allocated_gib']:.3f} GiB allocated, "
         f"{mem['reserved_gib']:.3f} reserved; finite {_finite_result(retried)}; the fraction "
         f"restored to 1.0")
@@ -2741,8 +2849,9 @@ def run_tasks(torch, K, T, tmp: str) -> dict:
         card[tag]["steady_epoch_s"] = _steady(epochs, e2e)
         prep = preps[key]
         n = {s: prep.sif_init[s].shape[0] for s in ("train", "valid", "test")}
-        want = 0 if metric == "dot_prod" else cfg.n_epochs * (
+        steps = cfg.n_epochs * (
             -(-n["train"] // 64) + -(-n["valid"] // 512) + -(-n["test"] // 512))
+        want = 0 if metric == "dot_prod" else steps
         metrics[tag] = _task_metrics(torch, card[tag], dataset, prep,
                                      cfg.sentiment_hidden_size, dev)
         log(f"[tasks] {tag} (synthetic {dataset}) on the card: {cfg.n_epochs} epochs "
@@ -2755,6 +2864,9 @@ def run_tasks(torch, K, T, tmp: str) -> dict:
             f"host report max abs {metrics[tag]['host_diff']}")
         if launches[tag]["k1_fwd"] != want or launches[tag]["k1_bwd"] != want:
             raise AssertionError(f"{tag}: K1 launched {launches[tag]}, expected {want}")
+        if launches[tag]["tok_fwd"] != steps or launches[tag]["tok_bwd"] != steps:
+            raise AssertionError(f"{tag}: the token kernels launched {launches[tag]}, "
+                                 f"expected {steps} each (one per step)")
         if e2e != (counts["captures"] > 0):
             raise AssertionError(f"{tag}: {counts['captures']} graphs captured")
 
@@ -3175,8 +3287,8 @@ def run_graph_small_fits(torch, K, T, tmp: str, dev) -> dict:
             f"eager: loss max rel {rec['loss_rel']:.3e}, params max abs "
             f"{rec['params_abs']:.3e}, bit-equal {rec['bit_equal']}")
         k1 = GRAPH_SENT_EPOCHS * SENT_STEPS_PER_EPOCH if path == "alternating_fit" else 0
-        if any(t["launches"] != {"k1_fwd": k1, "k1_bwd": 0, "k2_adam": 0, "k2_sgd": 0}
-               for t in turns):
+        if any(t["launches"] != {"k1_fwd": k1, "k1_bwd": 0, "k2_adam": 0, "k2_sgd": 0,
+                                 "tok_fwd": 0, "tok_bwd": 0} for t in turns):
             raise AssertionError(f"{path}: launches {rec['launches']}, expected K1-fwd {k1} "
                                  f"in every turn and nothing else")
         if not all(g.captures and g.replays for g in made) or any(
@@ -3848,6 +3960,7 @@ def main() -> int:
 
     k1 = _phase("2 (K1)", check_kernels, torch, K, dev)
     k2 = _phase("3 (K2)", check_k2, torch, T, dev)
+    tok = _phase("22 (token kernels)", check_token_kernels, torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         non_e2e = _phase("4 (non-e2e)", run_cli_path, torch, K, T, tmp, e2e=False)
         e2e = _phase("5 (e2e)", run_cli_path, torch, K, T, tmp, e2e=True,
@@ -3941,6 +4054,22 @@ def main() -> int:
          "bound_ms_k32": k2["bounds"][kind]["k32"][0],
          "bound_by_k32": k2["bounds"][kind]["k32"][1]}
         for kind, line in (("adam", 166), ("sgd", 210))
+    ] + [
+        {"name": f"token_dots-{kind}", "route": "cuda", "source": "mmtpu_torch/csrc/token_dots.cu",
+         "replaces": "mmtpu/ops/wordprob.py:57 (no Pallas kernel: XLA fuses the gather)",
+         "launches": e2e["launches"][f"tok_{kind}"], "max_abs_err": tok[f"{kind}_err"],
+         "ms": tok["times"]["pom_train"][kind], "plain_ms": tok["times"]["pom_train"][f"{kind}_plain"],
+         "bound_ms": tok["bounds"]["pom_train"][kind][0],
+         "bound_by": tok["bounds"]["pom_train"][kind][1], "library_ms": None,
+         **{f"{key}_{tag}": val for tag in TOKEN_SHAPES for key, val in (
+             ("ms", tok["times"][tag][kind]), ("plain_ms", tok["times"][tag][f"{kind}_plain"]),
+             ("bound_ms", tok["bounds"][tag][kind][0]), ("bound_by", tok["bounds"][tag][kind][1]))},
+         "launches_non_e2e": non_e2e["launches"][f"tok_{kind}"],
+         "launches_sweep_chunk": sweep["launches"][f"tok_{kind}"],
+         "launches_tasks": {tag: n[f"tok_{kind}"] for tag, n in tasks["launches"].items()},
+         "launches_task_pom_sweep": tasks["sweeps"]["sweep"]["launches"][f"tok_{kind}"],
+         "launches_task_pom_chunk_k32": tasks["sweeps"]["wide_chunk"]["launches"][f"tok_{kind}"]}
+        for kind in ("fwd", "bwd")
     ], "launches_by_path": by_path,
         "paths": {"non_e2e": {k: non_e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},
                   "e2e": {k: e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},

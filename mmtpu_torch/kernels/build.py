@@ -117,8 +117,13 @@ def load() -> ctypes.CDLL:
         lib.dec_update_sgd.restype = i
         lib.dec_update_blocks_per_sm.argtypes = [i]
         lib.dec_update_blocks_per_sm.restype = i
-        for fn in ("dec_update_d_tile", "dec_update_f_tile", "dec_update_batch_chunk"):
+        for fn in ("dec_update_d_tile", "dec_update_f_tile", "dec_update_batch_chunk",
+                   "token_dots_threads"):
             getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        ll = ctypes.c_longlong
+        for fn in ("token_dots_fwd", "token_dots_bwd"):
+            getattr(lib, fn).argtypes = [vp, ll, ll, vp, vp, i, vp, ll, ll] + [i] * 9 + [vp]
             getattr(lib, fn).restype = i
         _lib = lib
     return _lib

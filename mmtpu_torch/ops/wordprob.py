@@ -16,11 +16,14 @@ The rows are independent, so no value crosses configs.
 
 The per-token term reads each token's word vector.  The fits pass the
 tokens' ids (``text_ids``) in place of the gathered ``(..., B, L, D)``
-vectors: :func:`token_dots` computes the ``(..., B, L)`` dots a block of
-tokens at a time and keeps nothing ``(B, L, D)``-shaped for the backward,
-which gathers the same blocks again (mmtpu leaves this to XLA's fusions;
-gathered whole, a K = 32 sweep chunk's training step at POM's 1357-token
-rows held 2048 x 1357 x 300 floats, 3.3 GB).
+vectors: :func:`token_dots` computes the ``(..., B, L)`` dots and keeps
+nothing ``(B, L, D)``-shaped for the backward (mmtpu leaves this to XLA's
+fusions; gathered whole, a K = 32 sweep chunk's training step at POM's
+1357-token rows held 2048 x 1357 x 300 floats, 3.3 GB).  For a CUDA tensor
+it launches the hand-written kernels of
+:mod:`mmtpu_torch.kernels.token_dots`, which read each row by id from the
+vocabulary; for a CPU tensor it runs the plain twin
+(:func:`token_dots_plain`), which gathers a block of tokens at a time.
 """
 
 from __future__ import annotations
@@ -66,51 +69,69 @@ def _partition(partition_fn, latents: torch.Tensor, vocab_embeddings: torch.Tens
 
 
 # the most elements of gathered word vectors (a block of tokens of every row)
-# that token_dots holds at once: 512 MiB of float32
+# that the plain twin of token_dots holds at once: 512 MiB of float32
 TOKEN_BLOCK_ELEMS = 1 << 27
 
 
 def token_block(rows: int, depth: int) -> int:
-    """Tokens per block of :func:`token_dots` for ``rows`` rows of depth ``depth``."""
+    """Tokens per block of :func:`token_dots_plain` for ``rows`` rows of depth ``depth``."""
     return max(1, TOKEN_BLOCK_ELEMS // max(1, rows * depth))
+
+
+def token_dots_plain(latents, vocab, ids) -> torch.Tensor:
+    """``(R, M, L)`` dots of the ``(R, M, D)`` latents with the word vectors
+    ``vocab[ids]`` of row ``r``'s ``L`` tokens (``M`` latents share each
+    row's tokens), a gathered block of at most :data:`TOKEN_BLOCK_ELEMS`
+    elements at a time: the plain twin of the token kernel's forward."""
+    rows, n_tok = ids.shape
+    step = token_block(rows, latents.shape[-1])
+    out = latents.new_empty(rows, latents.shape[1], n_tok)
+    for s in range(0, n_tok, step):
+        out[:, :, s:s + step] = torch.bmm(latents, vocab[ids[:, s:s + step]].transpose(1, 2))
+    return out
+
+
+def token_dots_plain_bwd(g, vocab, ids) -> torch.Tensor:
+    """The ``(R, M, D)`` latent gradient of :func:`token_dots_plain` for the
+    cotangent ``g`` ``(R, M, L)``: the blocks added in a fixed order."""
+    rows, n_tok = ids.shape
+    step = token_block(rows, vocab.shape[-1])
+    g_lat = g.new_zeros(rows, g.shape[1], vocab.shape[-1])
+    for s in range(0, n_tok, step):
+        g_lat.baddbmm_(g[:, :, s:s + step], vocab[ids[:, s:s + step]])
+    return g_lat
 
 
 class _TokenDots(torch.autograd.Function):
     """``(R, M, L)`` dots of the ``(R, M, D)`` latents with the word vectors
-    ``vocab[ids]`` of row ``r``'s ``L`` tokens (``M`` latents share each
-    row's tokens), a block of tokens at a time; the gradient reaches the
-    latents only (the vocabulary is data).  The backward adds the blocks in
-    a fixed order, so two calls are bit for bit equal."""
+    ``vocab[ids]`` (:func:`token_dots_plain`), through
+    :mod:`mmtpu_torch.kernels.token_dots`; the gradient reaches the latents
+    only (the vocabulary is data) and needs only the vocabulary and the ids.
+    Every sum has a fixed order, so two calls are bit for bit equal."""
 
     @staticmethod
     def forward(ctx, latents, vocab, ids):
+        from mmtpu_torch.kernels.token_dots import token_dots_fwd
+
         ctx.save_for_backward(vocab, ids)
-        rows, n_tok = ids.shape
-        step = token_block(rows, latents.shape[-1])
-        out = latents.new_empty(rows, latents.shape[1], n_tok)
-        for s in range(0, n_tok, step):
-            out[:, :, s:s + step] = torch.bmm(latents, vocab[ids[:, s:s + step]].transpose(1, 2))
-        return out
+        return token_dots_fwd(latents, vocab, ids)
 
     @staticmethod
     def backward(ctx, g):
+        from mmtpu_torch.kernels.token_dots import token_dots_bwd
+
         vocab, ids = ctx.saved_tensors
-        rows, n_tok = ids.shape
-        step = token_block(rows, vocab.shape[-1])
-        g_lat = g.new_zeros(rows, g.shape[1], vocab.shape[-1])
-        for s in range(0, n_tok, step):
-            g_lat.baddbmm_(g[:, :, s:s + step], vocab[ids[:, s:s + step]])
-        return g_lat, None, None
+        return token_dots_bwd(g, vocab, ids), None, None
 
 
 def token_dots(latents: torch.Tensor, vocab_embeddings: torch.Tensor,
                text_ids: torch.Tensor) -> torch.Tensor:
     """``(..., B, L)`` dots ``vocab[text_ids[..., b, l]] . latents[..., b, :]``
     of ``(..., B, D)`` latents (leading axes broadcast), without a
-    ``(..., B, L, D)`` tensor: at most :data:`TOKEN_BLOCK_ELEMS` gathered
-    elements at a time, forward and backward.  ``(B, L)`` ids under leading
-    latent axes (the sweep's configs in an unshuffled inference fit) are
-    gathered once for all of them."""
+    ``(..., B, L, D)`` tensor: the token kernels on the card, at most
+    :data:`TOKEN_BLOCK_ELEMS` gathered elements at a time on the CPU, forward
+    and backward.  ``(B, L)`` ids under leading latent axes (the sweep's
+    configs in an unshuffled inference fit) are read once for all of them."""
     if vocab_embeddings.requires_grad:
         raise ValueError("token_dots differentiates the latents only; the vocabulary "
                          "must not require grad")

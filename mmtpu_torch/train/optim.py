@@ -153,12 +153,24 @@ def lazy_adam_catch_up(p0, m0, v0, s: int, coeffs):
     """A block's state after its ``s`` pending zero-gradient steps of the
     epoch (``s = 0``: unchanged).  The decays' exponent is entry ``s`` of
     the coefficients' device vector: nothing is copied from the host, so a
-    captured epoch may call it."""
+    captured epoch may call it.
+
+    The pending steps' terms go to buffers of one size for every block (the
+    epoch's last block's ``S - 1`` steps), in the layout that the operations
+    would give them (a config axis outside the steps), so the sum reads the
+    same values in the same order.  Terms sized by ``s`` would grow at each
+    step of the epoch, each larger than any block freed before it, and take
+    a new segment of a captured epoch's memory pool at every step."""
     if s == 0:
         return p0, m0, v0
     # (s, [K,] 1, 1): the pending steps lead, against (..., B, D) blocks
     a1, a2 = (c[..., :s].movedim(-1, 0)[..., None, None] for c in coeffs[:2])
-    p_s = p0 - torch.sum(a1 * m0 / (torch.sqrt(a2 * v0) + _EPS), dim=0)
+    work = m0.new_empty(2, *m0.shape[:-2], coeffs[0].shape[-1] - 1, *m0.shape[-2:])
+    den, terms = (w[..., :s, :, :].movedim(-3, 0) for w in work)
+    torch.mul(a2, v0, out=den)
+    den.sqrt_().add_(_EPS)
+    torch.mul(a1, m0, out=terms)
+    p_s = p0 - torch.sum(terms.div_(den), dim=0)
     sf = coeffs[4][s]
     return p_s, torch.pow(_B1, sf) * m0, torch.pow(_B2, sf) * v0
 

@@ -5,7 +5,9 @@ This file imports no jax, so it also runs on a GPU machine without jax:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 forward rtol 1e-5 and backward atol 1e-5, K2 rtol 1e-5 /
-atol 1e-5, against the plain versions (the TPU kernels' tests); small fits on
+atol 1e-5, against the plain versions (the TPU kernels' tests); the token
+kernels rtol 1e-5 against their plain twins (atol 1e-5 on the dots, 1e-4 on
+latent gradients, sums of up to 1357 tokens in another order); small fits on
 the card against the same fits on the CPU at the parity tests' 2e-4.
 """
 
@@ -763,6 +765,219 @@ def test_token_dots_repeat_bit_for_bit(cuda_device):
                                rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(outs[0][1][rows], torch.einsum("bl,bld->bd", g[rows], sent),
                                rtol=1e-5, atol=1e-3)
+
+
+def _token_case(dev, rows, m, n_tok, d=300, v=9206, ids_dtype=torch.int64, seed=5):
+    """The token term's inputs: ``(R, M, D)`` normal latents, a unit-norm
+    ``(V, D)`` vocabulary, ``(R, L)`` ids with a zero-padded tail and a word
+    repeated in every row, and an ``(R, M, L)`` normal cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    lat = torch.randn(rows, m, d, generator=gen)
+    vocab = torch.randn(v, d, generator=gen)
+    vocab = vocab / torch.linalg.vector_norm(vocab, dim=-1, keepdim=True)
+    ids = torch.randint(1, v, (rows, n_tok), generator=gen)
+    ids[:, n_tok // 2:] = 0
+    ids[:, :min(n_tok, 8)] = v - 1
+    g = torch.randn(rows, m, n_tok, generator=gen)
+    return lat.to(dev), vocab.to(dev), ids.to(ids_dtype).to(dev), g.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("rows,m,n_tok,d", [
+    (2048, 1, 1357, 300), (203, 32, 1357, 300), (100, 32, 1357, 300), (64, 1, 1357, 300),
+    (2048, 1, 20, 300), (229, 32, 20, 300), (37, 3, 97, 301), (5, 40, 33, 12)])
+def test_token_kernel_matches_plain_twin(cuda_device, rows, m, n_tok, d, ids_dtype):
+    """The token kernels against their plain twins on the card: POM's
+    training step (2048 rows, M = 1, 1357 tokens, V = 9206) and its
+    inference fits (203 and 100 rows, M = 32 configs), rows too few to fill
+    the card, MOSI's 20-token rows, an odd depth (the float path) at M = 3
+    and two latent tiles at M = 40.  Dots rtol 1e-5 (atol 1e-5 for dots near
+    0), latent gradients rtol 1e-5 (atol 1e-4: sums of up to 1357 terms in
+    another order); one launch each; a second call bit for bit equal."""
+    import mmtpu_torch.kernels.token_dots as TD
+    from mmtpu_torch.kernels.build import load
+    from mmtpu_torch.ops.wordprob import token_dots_plain, token_dots_plain_bwd
+
+    assert load().token_dots_threads() == TD.THREADS
+    lat, vocab, ids, g = _token_case(cuda_device, rows, m, n_tok, d, ids_dtype=ids_dtype)
+    before = dict(TD.LAUNCHES)
+    dots, glat = TD.token_dots_fwd(lat, vocab, ids), TD.token_dots_bwd(g, vocab, ids)
+    assert TD.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    torch.testing.assert_close(dots, token_dots_plain(lat, vocab, ids.long()), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(glat, token_dots_plain_bwd(g, vocab, ids.long()), rtol=1e-5,
+                               atol=1e-4)
+    assert torch.equal(dots, TD.token_dots_fwd(lat, vocab, ids))
+    assert torch.equal(glat, TD.token_dots_bwd(g, vocab, ids))
+
+
+@pytest.mark.cuda
+def test_token_kernel_takes_strided_configs_and_rejects_the_rest(cuda_device):
+    """Latents and cotangents with the config axis outside the rows (the
+    sweep's inference fits), and an expanded cotangent, give what their
+    contiguous copies give, bit for bit, and the results keep the config
+    axis outside; wrong types and devices raise."""
+    import mmtpu_torch.kernels.token_dots as TD
+
+    lat, vocab, ids, g = _token_case(cuda_device, 203, 32, 300)
+    lat_t, g_t = lat.transpose(0, 1).contiguous().transpose(0, 1), g.transpose(
+        0, 1).contiguous().transpose(0, 1)
+    dots, glat = TD.token_dots_fwd(lat_t, vocab, ids), TD.token_dots_bwd(g_t, vocab, ids)
+    assert dots.stride(0) < dots.stride(1) and glat.stride(0) < glat.stride(1)
+    assert torch.equal(dots, TD.token_dots_fwd(lat, vocab, ids))
+    assert torch.equal(glat, TD.token_dots_bwd(g, vocab, ids))
+    ones = torch.ones(1, device=cuda_device).expand(*g.shape)
+    assert torch.equal(TD.token_dots_bwd(ones, vocab, ids),
+                       TD.token_dots_bwd(ones.contiguous(), vocab, ids))
+    with pytest.raises(TypeError):
+        TD.token_dots_fwd(lat.double(), vocab, ids)
+    with pytest.raises(TypeError):
+        TD.token_dots_fwd(lat, vocab, ids.float())
+    with pytest.raises(ValueError, match="tensors on"):
+        TD.token_dots_fwd(lat, vocab.cpu(), ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_token_kernel_stops_at_an_id_outside_the_vocabulary(cuda_device, kind):
+    """An id at or past the vocabulary's end stops each token kernel with a
+    device-side assert (in a process of its own: the assert ends the
+    process's CUDA context), as it stops the twin's gather."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import torch; import mmtpu_torch.kernels.token_dots as TD; "
+            "d = torch.device('cuda', 0); v = torch.randn(50, 12, device=d); "
+            "ids = torch.randint(0, 50, (4, 30), device=d); ids[2, 7] = 50; "
+            f"TD.token_dots_{kind}(torch.randn(4, 1, {{'fwd': 12, 'bwd': 30}}['{kind}'], "
+            "device=d), v, ids); torch.cuda.synchronize(); print('no assert')")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0 and "no assert" not in proc.stdout, proc.stdout
+    assert "Assertion" in proc.stderr or "assert" in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_token_kernel_keeps_no_gathered_block(cuda_device):
+    """At POM's training shape the forward and backward together allocate
+    under 64 MiB beyond their inputs and outputs (the twin gathers 512 MiB
+    blocks)."""
+    import mmtpu_torch.kernels.token_dots as TD
+
+    lat, vocab, ids, g = _token_case(cuda_device, 2048, 1, 1357)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    dots, glat = TD.token_dots_fwd(lat, vocab, ids), TD.token_dots_bwd(g, vocab, ids)
+    torch.cuda.synchronize()
+    outputs = 4 * (dots.numel() + glat.numel())
+    extra = torch.cuda.max_memory_allocated(cuda_device) - base - outputs
+    assert extra < 64 << 20, extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["train", "infer"])
+def test_token_kernel_replay_is_eager_bit_for_bit(cuda_device, layout):
+    """``token_dots`` forward and backward in a captured body at POM's
+    shapes: the eager warm-up, the capture's replay and a later replay give
+    the same bits, and each call counts one launch of each kernel (a replay
+    adds what its capture recorded).  ``train``: (K, B, D) latents against
+    (K, B, L) ids (M = 1); ``infer``: against (B, L) ids (M = K)."""
+    import mmtpu_torch.kernels.token_dots as TD
+    from mmtpu_torch.graphs import Graphs
+    from mmtpu_torch.ops.wordprob import token_dots
+
+    k, b = (32, 64) if layout == "train" else (32, 203)
+    lat, vocab, ids, _ = _token_case(cuda_device, b, k, 1357)
+    lat = lat.transpose(0, 1).contiguous()  # (K, B, D)
+    gen = torch.Generator().manual_seed(6)
+    if layout == "train":
+        ids = torch.randint(0, 9206, (k, b, 1357), generator=gen).to(cuda_device)
+    g = torch.randn(k, b, 1357, generator=gen).to(cuda_device)
+
+    def body(lat, vocab, ids, g):
+        lat = lat.detach().requires_grad_()
+        dots = token_dots(lat, vocab, ids)
+        (grad,) = torch.autograd.grad(dots, lat, g)
+        return dots.detach(), grad
+
+    graphs, outs = Graphs(cuda_device, True), []
+    for _ in range(3):
+        before = dict(TD.LAUNCHES)
+        outs.append([t.clone() for t in graphs("token", body, lat, vocab, ids, g)])
+        torch.cuda.synchronize()
+        assert {n: TD.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "bwd": 1}
+    assert (graphs.warmups, graphs.captures, graphs.replays) == (1, 1, 2)
+    for later in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], later))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fit", "chunk"])
+def test_token_kernel_runs_every_step_of_captured_fits(cuda_device, kind):
+    """Every step that computes the angular word term launches the token
+    kernels once each way, as it launches K1: in a captured latent fit (M =
+    1) and in a captured sweep chunk (training at M = 1, inference fits at
+    M = K), eager and captured alike."""
+    import mmtpu_torch.kernels.token_dots as TD
+
+    counts = {}
+    for graphs in (False, True):
+        before = {**{f"k1_{n}": v for n, v in K.LAUNCHES.items()}, **TD.LAUNCHES}
+        if kind == "fit":
+            _fit("adam-train-lazy", _tiny_fit_inputs(cuda_device), graphs)
+        else:
+            from mmtpu_torch.config import make_grid
+            from mmtpu_torch.data.pipeline import prepare_device_data
+            from mmtpu_torch.data.synthetic import synthesize_dataset
+            from mmtpu_torch.sweep.runner import run_chunk
+
+            configs = [dict(c, n_epochs=MIN_EPOCHS, n_sentiment_epochs=2) for c in make_grid()
+                       if c["optimizer"] == "adam"][:3]
+            dims = tuple(sorted({c["pos_embed_dim"] for c in configs}))
+            prep = prepare_device_data(synthesize_dataset(
+                "pom", n_train=40, n_valid=10, n_test=12, vocab_size=100, embed_dim=16,
+                audio_dim=6, visual_dim=5, text_len=64), pos_mode="shared", pos_dims=dims)
+            run_chunk(configs, prep, batch_size=8, device=cuda_device, graphs=graphs)
+        torch.cuda.synchronize()
+        after = {**{f"k1_{n}": v for n, v in K.LAUNCHES.items()}, **TD.LAUNCHES}
+        counts[graphs] = {n: after[n] - before[n] for n in before}
+    assert counts[True] == counts[False]
+    c = counts[True]
+    assert c["fwd"] == c["k1_fwd"] > 0 and c["bwd"] == c["k1_bwd"] > 0
+    if kind == "fit":
+        assert c["fwd"] == c["bwd"] == MIN_EPOCHS * 5
+
+
+@pytest.mark.cuda
+def test_lazy_catch_up_on_the_card(cuda_device):
+    """Lazy Adam's catch-up at a MOSI chunk's blocks (K = 32, B = 64, D =
+    300, 20 steps): the formula's bits on fresh temporaries sized by the
+    block index, at every block index, and after the first block no new
+    segment of device memory (its buffers keep one size all epoch)."""
+    from mmtpu_torch.train.optim import _EPS, lazy_adam_catch_up, lazy_adam_coeffs
+
+    k, b, d, steps = 32, 64, 300, 20
+    gen = torch.Generator().manual_seed(7)
+    p, m, v = (torch.randn(k, b, d, generator=gen).to(cuda_device) for _ in range(3))
+    v = v.abs() * 1e-2
+    coeffs = lazy_adam_coeffs(torch.arange(k, dtype=torch.int32, device=cuda_device), steps,
+                              torch.full((k,), 1e-3, device=cuda_device))
+    for s in range(1, steps):
+        a1, a2 = (c[..., :s].movedim(-1, 0)[..., None, None] for c in coeffs[:2])
+        want = p - torch.sum(a1 * m / (torch.sqrt(a2 * v) + _EPS), dim=0)
+        assert torch.equal(lazy_adam_catch_up(p, m, v, s, coeffs)[0], want)
+    del want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lazy_adam_catch_up(p, m, v, 1, coeffs)
+    segments = torch.cuda.memory_stats(cuda_device)["segment.all.allocated"]
+    for s in range(2, steps):
+        lazy_adam_catch_up(p, m, v, s, coeffs)
+    assert torch.cuda.memory_stats(cuda_device)["segment.all.allocated"] == segments
 
 
 @pytest.mark.cuda

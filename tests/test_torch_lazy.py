@@ -36,6 +36,24 @@ def _close(got, want, **tol):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **(tol or FN_TOL))
 
 
+@pytest.mark.parametrize("k", [None, 3])
+def test_lazy_catch_up_sums_its_terms_as_the_formula_does(rng, k):
+    """The catch-up, whose terms live in buffers of the epoch's largest size,
+    equals the formula on fresh temporaries sized by the block index bit for
+    bit, at every block index, with and without a config axis."""
+    S, B, Dd = 6, 3, 5
+    lead = () if k is None else (k,)
+    r = lambda *sh: torch.tensor(rng.standard_normal(lead + sh).astype(np.float32))
+    p, m, v = r(B, Dd), 0.1 * r(B, Dd), torch.abs(0.01 * r(B, Dd))
+    count = torch.tensor(5 if k is None else [5, 0, 9], dtype=torch.int32)
+    lr = torch.tensor(0.01 if k is None else [0.01, 0.1, 0.001])
+    coeffs = topt.lazy_adam_coeffs(count, S, lr)
+    for s in range(1, S):
+        a1, a2 = (c[..., :s].movedim(-1, 0)[..., None, None] for c in coeffs[:2])
+        want = p - torch.sum(a1 * m / (torch.sqrt(a2 * v) + topt._EPS), dim=0)
+        assert torch.equal(topt.lazy_adam_catch_up(p, m, v, s, coeffs)[0], want)
+
+
 @pytest.mark.parametrize("S", [1, 2, 5])
 def test_lazy_adam_functions_match_mmtpu(rng, S):
     """Coefficients, catch-up at every block index, touch and epilogue, on

@@ -118,6 +118,55 @@ def test_token_dots_keeps_no_gathered_rows_and_refuses_a_trained_vocabulary(monk
         twp.token_dots(lat_t, torch.tensor(vocab, requires_grad=True), torch.tensor(ids))
 
 
+@pytest.mark.parametrize("rows,m,n_tok,units", [
+    (2048, 1, 1357, 75), (203, 32, 1357, 75), (100, 32, 1357, 75), (2048, 1, 20, 75),
+    (512, 32, 20, 75), (64, 1, 1357, 75), (3, 3, 50, 3), (2, 40, 5, 301), (5, 8, 4, 1000)])
+def test_token_kernel_tiles_cover_each_output_once(rows, m, n_tok, units):
+    """The token kernels' tile parameters, picked by the shape alone, fit a
+    block of ``THREADS`` threads and, laid out as ``token_dots.cu`` lays out
+    its threads, give each dot of a row (forward) and each depth unit of a
+    latent's gradient (backward) to exactly one thread's tile."""
+    import mmtpu_torch.kernels.token_dots as TD
+
+    mt, ks_log2, passes = TD.fwd_tiles(m, n_tok, rows, 132)
+    tm, tt, _ = TD._FWD_TILE[mt]
+    groups = mt // tm
+    assert groups << ks_log2 <= TD.THREADS and 1 <= passes <= 8
+    per_pass = tt * (TD.THREADS // (groups << ks_log2))
+    tiles = -(-n_tok // (per_pass * passes))
+    tok = [(b * passes + p) * per_pass + t * tt + j for b in range(tiles) for p in range(passes)
+           for t in range(per_pass // tt) for j in range(tt)]
+    assert sorted(x for x in tok if x < n_tok) == list(range(n_tok))
+    lat = [z * mt + i * groups + q for z in range(-(-m // mt)) for q in range(groups)
+           for i in range(tm)]
+    assert sorted(x for x in lat if x < m) == list(range(m))
+
+    mt, cw, ts = TD.bwd_tiles(m, units, n_tok, rows, 132)
+    assert 1 <= ts <= max(1, n_tok // 64) and ts * (mt // TD._BWD_TILE[mt]) * cw <= TD.THREADS
+    cols = [y * cw + c for y in range(-(-units // cw)) for c in range(min(cw, units - y * cw))]
+    assert sorted(cols) == list(range(units))
+
+
+def test_token_wrappers_run_the_twin_on_the_cpu():
+    """On the CPU the token wrappers are the plain twins, bit for bit, and
+    launch nothing; shapes and types they do not take raise."""
+    import mmtpu_torch.kernels.token_dots as TD
+
+    lat, vocab, ids, *_ = _token_inputs(k=3, length=40)
+    lat, vocab, ids = torch.tensor(lat).transpose(0, 1), torch.tensor(vocab), torch.tensor(ids)
+    g = torch.randn(5, 3, 40, generator=torch.Generator().manual_seed(1))
+    before = dict(TD.LAUNCHES)
+    assert torch.equal(TD.token_dots_fwd(lat, vocab, ids), twp.token_dots_plain(lat, vocab, ids))
+    assert torch.equal(TD.token_dots_bwd(g, vocab, ids), twp.token_dots_plain_bwd(g, vocab, ids))
+    assert TD.LAUNCHES == before
+    with pytest.raises(ValueError, match="rows"):
+        TD.token_dots_fwd(lat[:4], vocab, ids)
+    with pytest.raises(ValueError, match="takes"):
+        TD.token_dots_fwd(lat[0], vocab, ids)
+    with pytest.raises(TypeError, match="ids"):
+        TD.token_dots_bwd(g, vocab, ids.float())
+
+
 def _long_pom_prep():
     """mmtpu's ``test_pom_sweep_real_token_length`` data: POM at 1280-token rows."""
     ds = synthesize_dataset("pom", n_train=16, n_valid=6, n_test=8, vocab_size=60,
