@@ -55,6 +55,7 @@ from mmtpu_torch.train.latents import (
 )
 from mmtpu_torch.train.optim import init_opt_state, opt_update
 from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
+from mmtpu_torch.utils.profiling import STEP, in_region, region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +85,7 @@ class E2EFitSpec:
                              batch_shard_axis=self.batch_shard_axis)
 
 
+@in_region(STEP["senti"])
 def senti_l1(sen, lat, y, mask) -> torch.Tensor:
     """Per-sample L1 error of the sentiment MLP, ``(B,)`` (``(K, B)`` for
     ``(K, B, D)`` latents): unlabeled rows (``mask`` 0) are zeroed before the
@@ -95,6 +97,17 @@ def senti_l1(sen, lat, y, mask) -> torch.Tensor:
     if err.ndim > rows:
         err = torch.mean(err, dim=tuple(range(rows, err.ndim)))
     return err
+
+
+def _joint_per_sample(lw, neg, sen, lat, y, mask) -> torch.Tensor:
+    """``lw * neg + (1 - lw) * senti_l1(...)``, the per-sample objective,
+    in that order of operations (the autograd nodes' order, and with it the
+    order in which the backward adds the row gradients, is the expression's)."""
+    with region(STEP["loss"]):
+        weighted = lw * neg
+    l1 = senti_l1(sen, lat, y, mask)
+    with region(STEP["loss"]):
+        return weighted + (1.0 - lw) * l1
 
 
 def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mapping,
@@ -149,7 +162,8 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
     def body(carry, perm, active, hp, data, labels, vocab_emb, senti_mask, valid, pad_idx):
         embed, dec, sen, e_opt, d_opt, s_opt = carry
         lr = hp["lr"]
-        lw = per_config(hp["likelihood_weight"], embed.ndim - 1)  # against (B,) or (K, B)
+        with region(STEP["loss"]):
+            lw = per_config(hp["likelihood_weight"], embed.ndim - 1)  # against (B,) or (K, B)
         heads_gate = hp["train_heads"] if "train_heads" in hp else None
         dec_gates = None
         if heads_gate is not None:
@@ -158,49 +172,59 @@ def fit_e2e(init_embed: torch.Tensor, decoder_params, senti_params, data: Mappin
         table = PermutedEpoch(embed, e_opt, perm, pad_idx, bsz, kind, lazy, lr, active)
         batch_losses = []
         for s in range(n_batches):
-            j, rv, count, blk = table.batch_index(s), valid[s], torch.sum(valid[s]), slice(None)
-            if shard is not None:  # this rank's block of the step's rows
-                blk = shard.block(bsz)
-                j, rv = j[blk], rv[blk]
-            b = gather_batch(data, j)
-            y = labels[j]
-            mask = None if senti_mask is None else senti_mask[j]
+            with region(STEP["gather"]):
+                j, rv, count, blk = (table.batch_index(s), valid[s], torch.sum(valid[s]),
+                                     slice(None))
+                if shard is not None:  # this rank's block of the step's rows
+                    blk = shard.block(bsz)
+                    j, rv = j[blk], rv[blk]
+                b = gather_batch(data, j)
+                y = labels[j]
+                mask = None if senti_mask is None else senti_mask[j]
             if spec.fused_dec_update:
                 from mmtpu_torch.train.fused import fused_joint_step
 
                 loss, g_rows, g_sen, dec, d_opt = fused_joint_step(
-                    dec, d_opt, table.rows(s), b, vocab_emb, hp, lspec, valid[s], active,
+                    dec, d_opt, table.rows(s), b, vocab_emb, hp, lspec, rv, active,
                     heads_gate=1.0 if heads_gate is None else heads_gate, norm_gate=1.0,
                     extra_params=sen,
-                    combine=lambda sp, neg, lat: lw * neg + (1.0 - lw) * senti_l1(sp, lat, y,
-                                                                                  mask))
+                    combine=lambda sp, neg, lat: _joint_per_sample(lw, neg, sp, lat, y, mask))
             else:
-                rows = table.rows(s)[..., blk, :].detach().requires_grad_()
-                dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
-                sen = tree_map(lambda t: t.detach().requires_grad_(), sen)
+                rows = table.rows(s)
+                with region(STEP["gather"]):
+                    rows = rows[..., blk, :].detach().requires_grad_()
+                    dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
+                    sen = tree_map(lambda t: t.detach().requires_grad_(), sen)
                 neg = joint_neg_log_prob_per_sample(dec, rows, b, vocab_emb, hp, lspec, rv,
                                                     None if shard is None else shard.row_sum)
-                per_sample = lw * neg + (1.0 - lw) * senti_l1(sen, rows, y, mask)
-                # every valid row of the (global) batch divides, labeled or not
-                loss = torch.sum(per_sample * rv, dim=-1) / torch.clamp_min(count, 1.0)
-                dec_leaves, sen_leaves = tree_leaves(dec), tree_leaves(sen)
-                # per-config means summed: each config's gradient is its own
-                grads = torch.autograd.grad(loss.sum(), [rows] + dec_leaves + sen_leaves)
-                g_rows, g_params = grads[0], grads[1:]
-                if shard is not None:  # the global batch's row gradients, loss and sums
-                    g_rows, g_params = shard.rows(g_rows, bsz), shard.reduce_grads(g_params)
-                    loss = shard.total(loss)
-                g_dec = tree_unflatten(dec, g_params[:len(dec_leaves)])
-                g_sen = tree_unflatten(sen, g_params[len(dec_leaves):])
-                dec = tree_map(torch.Tensor.detach, dec)
-                sen = tree_map(torch.Tensor.detach, sen)
-                dec, d_opt = opt_update(dec, g_dec, d_opt, lr, None, active, kind=kind,
-                                        gates=dec_gates)
-            sen, s_opt = opt_update(sen, g_sen, s_opt, lr, None, active, kind=kind)
+                per_sample = _joint_per_sample(lw, neg, sen, rows, y, mask)
+                with region(STEP["loss"]):
+                    # every valid row of the (global) batch divides, labeled or not
+                    loss = torch.sum(per_sample * rv, dim=-1) / torch.clamp_min(count, 1.0)
+                    objective = loss.sum()  # per-config means: each config's gradient is its own
+                with region(STEP["backward"]):
+                    dec_leaves, sen_leaves = tree_leaves(dec), tree_leaves(sen)
+                    grads = torch.autograd.grad(objective, [rows] + dec_leaves + sen_leaves)
+                    g_rows, g_params = grads[0], grads[1:]
+                    if shard is not None:  # the global batch's row gradients, loss and sums
+                        g_rows, g_params = shard.rows(g_rows, bsz), shard.reduce_grads(g_params)
+                        loss = shard.total(loss)
+                    g_dec = tree_unflatten(dec, g_params[:len(dec_leaves)])
+                    g_sen = tree_unflatten(sen, g_params[len(dec_leaves):])
+                    dec = tree_map(torch.Tensor.detach, dec)
+                    sen = tree_map(torch.Tensor.detach, sen)
+                with region(STEP["optimizer"]):
+                    dec, d_opt = opt_update(dec, g_dec, d_opt, lr, None, active, kind=kind,
+                                            gates=dec_gates)
+            with region(STEP["optimizer"]):
+                sen, s_opt = opt_update(sen, g_sen, s_opt, lr, None, active, kind=kind)
             table.step(s, g_rows)
-            batch_losses.append(loss.detach())
+            with region(STEP["loss"]):
+                batch_losses.append(loss.detach())
         embed, e_opt = table.finish()
-        return (embed, dec, sen, e_opt, d_opt, s_opt), torch.sum(torch.stack(batch_losses), dim=0)
+        with region(STEP["loss"]):
+            return ((embed, dec, sen, e_opt, d_opt, s_opt),
+                    torch.sum(torch.stack(batch_losses), dim=0))
 
     # the host part of each epoch, then its device body (a graph replay where
     # graphs says so; a batch-sharded fit runs eagerly)

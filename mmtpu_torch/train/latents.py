@@ -78,6 +78,7 @@ from mmtpu_torch.train.optim import (
 )
 from mmtpu_torch.graphs import Graphs, fit_graphs, fit_result
 from mmtpu_torch.tree import per_config, tree_leaves, tree_map, tree_unflatten
+from mmtpu_torch.utils.profiling import STEP, in_region, region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +110,7 @@ class LatentFitSpec:
     batch_shard_axis: str | None = None
 
 
+@in_region(STEP["word"])
 def _word_logprob(spec: LatentFitSpec, latents, vocab_emb, b):
     """The word log-likelihood; ``vocab_emb`` is the ``(V, D)`` table or,
     under a vocab-sharded mesh, this rank's
@@ -174,6 +176,7 @@ def _head_log_prob(head: str, mu, sigma, b) -> torch.Tensor:
     return total
 
 
+@in_region(STEP["heads"])
 def stacked_head_log_probs(spec, mu_all, sigma_all, b) -> list:
     """Per-head log-probs from the stacked ``(B, sum F_h)`` mu/sigma, each head
     sliced at its offset; pad columns past the heads are never read."""
@@ -188,6 +191,7 @@ def stacked_head_log_probs(spec, mu_all, sigma_all, b) -> list:
     return head_lp
 
 
+@in_region(STEP["heads"])
 def neg_joint(head_lp: list, word_lp, hp) -> torch.Tensor:
     """The negative weighted joint log-likelihood at ``hp["word_loss_weight"]``."""
     return -weighted_joint(head_lp, word_lp, hp["word_loss_weight"])
@@ -200,13 +204,16 @@ def joint_neg_log_prob_per_sample(decoder_params, lat, b, vocab_emb, hp, spec: L
     :func:`mmtpu_torch.models.decoder.apply_norm`'s."""
     word_lp = _word_logprob(spec, lat, vocab_emb, b)
     if is_stacked(decoder_params):
-        mu_all, sigma_all = apply_decoder_stacked(decoder_params, lat, hp["norm_code"],
-                                                  batch_weights=row_valid, row_sum=row_sum)
+        with region(STEP["decoder"]):
+            mu_all, sigma_all = apply_decoder_stacked(decoder_params, lat, hp["norm_code"],
+                                                      batch_weights=row_valid, row_sum=row_sum)
         return neg_joint(stacked_head_log_probs(spec, mu_all, sigma_all, b), word_lp, hp)
     heads = MMB1_HEADS if spec.unimodal else MMB2_HEADS
-    out = apply_decoder(decoder_params, lat, hp["norm_code"], batch_weights=row_valid,
-                        row_sum=row_sum)
-    head_lp = [_head_log_prob(h, out[h]["mu"], out[h]["sigma"], b) for h in heads]
+    with region(STEP["decoder"]):
+        out = apply_decoder(decoder_params, lat, hp["norm_code"], batch_weights=row_valid,
+                            row_sum=row_sum)
+    with region(STEP["heads"]):
+        head_lp = [_head_log_prob(h, out[h]["mu"], out[h]["sigma"], b) for h in heads]
     return neg_joint(head_lp, word_lp, hp)
 
 
@@ -221,10 +228,11 @@ def batch_neg_log_prob(embed_batch, decoder_params, b, vocab_emb, hp, spec: Late
     ``n_valid``, the global batch's valid rows."""
     neg = joint_neg_log_prob_per_sample(decoder_params, embed_batch, b, vocab_emb, hp, spec,
                                         row_valid, None if shard is None else shard.row_sum)
-    if row_valid is None:
-        return torch.mean(neg, dim=-1)
-    count = torch.sum(row_valid) if n_valid is None else n_valid
-    return torch.sum(neg * row_valid, dim=-1) / torch.clamp_min(count, 1.0)
+    with region(STEP["loss"]):
+        if row_valid is None:
+            return torch.mean(neg, dim=-1)
+        count = torch.sum(row_valid) if n_valid is None else n_valid
+        return torch.sum(neg * row_valid, dim=-1) / torch.clamp_min(count, 1.0)
 
 
 def train_view(data: Mapping) -> dict:
@@ -310,6 +318,7 @@ class PermutedEpoch:
     dropped whole, per config.
     """
 
+    @in_region(STEP["epoch"])
     def __init__(self, embed, e_opt: OptState, perm, pad_idx, bsz: int, kind: str, lazy: bool,
                  lr, active):
         self.idx = torch.cat([perm, pad_idx.expand(*perm.shape[:-1], -1)], dim=-1)
@@ -330,6 +339,7 @@ class PermutedEpoch:
         """Block ``s``'s rows of the data, ``(B,)`` or ``(K, B)``."""
         return self.idx[..., s * self.bsz:(s + 1) * self.bsz]
 
+    @in_region(STEP["optimizer"])
     def rows(self, s: int) -> torch.Tensor:
         blk = slice(s * self.bsz, (s + 1) * self.bsz)
         if self.lazy:
@@ -344,6 +354,7 @@ class PermutedEpoch:
             return new if self.active else old
         return torch.where(per_config(self.active, new.ndim), new, old)
 
+    @in_region(STEP["optimizer"])
     @torch.no_grad()
     def step(self, s: int, g_rows: torch.Tensor) -> None:
         blk = slice(s * self.bsz, (s + 1) * self.bsz)
@@ -359,6 +370,7 @@ class PermutedEpoch:
             self.embp, self.e_opt = opt_update(self.embp, g_full, self.e_opt, self.lr, None,
                                                self.active, kind="adam")
 
+    @in_region(STEP["epoch"])
     def finish(self) -> tuple:
         """``(embed, e_opt)`` after the epoch.  The pad rows (duplicates of
         row 0) are sliced off before the permutation is inverted, so a pad
@@ -460,38 +472,47 @@ def _make_epoch(data: Mapping, vocab_emb, hp: Mapping, spec: LatentFitSpec, n: i
         dec_gates = None if dec_gate is None else tree_map(lambda _: dec_gate, dec)
         batch_losses = []
         for s in range(n_batches):
-            j, rv, n_valid, blk = table.batch_index(s), valid[s], None, slice(None)
-            if shard is not None:  # this rank's block of the step's rows
-                blk = shard.block(bsz)
-                j, rv, n_valid = j[blk], rv[blk], torch.sum(valid[s])
-            b = gather_batch(data, j)
+            with region(STEP["gather"]):
+                j, rv, n_valid, blk = table.batch_index(s), valid[s], None, slice(None)
+                if shard is not None:  # this rank's block of the step's rows
+                    blk = shard.block(bsz)
+                    j, rv, n_valid = j[blk], rv[blk], torch.sum(valid[s])
+                b = gather_batch(data, j)
             if fused:
                 from mmtpu_torch.train.fused import fused_joint_step
 
                 gate = 1.0 if dec_gate is None else dec_gate
                 loss, g_rows, _, dec, d_opt = fused_joint_step(
-                    dec, d_opt, table.rows(s), b, vocab_emb, hp, spec, valid[s], active,
+                    dec, d_opt, table.rows(s), b, vocab_emb, hp, spec, rv, active,
                     heads_gate=gate, norm_gate=gate)
             else:
-                rows = table.rows(s)[..., blk, :].detach().requires_grad_()
-                if spec.train_decoder:
-                    dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
+                rows = table.rows(s)
+                with region(STEP["gather"]):
+                    rows = rows[..., blk, :].detach().requires_grad_()
+                    if spec.train_decoder:
+                        dec = tree_map(lambda t: t.detach().requires_grad_(), dec)
                 loss = batch_neg_log_prob(rows, dec, b, vocab_emb, hp, spec, rv, shard, n_valid)
-                wrt = [rows] + (tree_leaves(dec) if spec.train_decoder else [])
-                # per-config means summed: each config's gradient is its own
-                grads = torch.autograd.grad(loss.sum(), wrt)
-                g_rows, g_dec = grads[0], grads[1:]
-                if shard is not None:  # the global batch's row gradients, loss and sums
-                    g_rows, g_dec = shard.rows(g_rows, bsz), shard.reduce_grads(g_dec)
-                    loss = shard.total(loss)
+                with region(STEP["loss"]):
+                    objective = loss.sum()  # per-config means: each config's gradient is its own
+                with region(STEP["backward"]):
+                    wrt = [rows] + (tree_leaves(dec) if spec.train_decoder else [])
+                    grads = torch.autograd.grad(objective, wrt)
+                    g_rows, g_dec = grads[0], grads[1:]
+                    if shard is not None:  # the global batch's row gradients, loss and sums
+                        g_rows, g_dec = shard.rows(g_rows, bsz), shard.reduce_grads(g_dec)
+                        loss = shard.total(loss)
+                    if spec.train_decoder:
+                        dec = tree_map(torch.Tensor.detach, dec)
                 if spec.train_decoder:
-                    dec = tree_map(torch.Tensor.detach, dec)
-                    dec, d_opt = opt_update(dec, tree_unflatten(dec, g_dec), d_opt, lr,
-                                            None, active, kind=kind, gates=dec_gates)
+                    with region(STEP["optimizer"]):
+                        dec, d_opt = opt_update(dec, tree_unflatten(dec, g_dec), d_opt, lr,
+                                                None, active, kind=kind, gates=dec_gates)
             table.step(s, g_rows)
-            batch_losses.append(loss.detach())
+            with region(STEP["loss"]):
+                batch_losses.append(loss.detach())
         embed, e_opt = table.finish()
-        return (embed, dec, e_opt, d_opt), torch.sum(torch.stack(batch_losses), dim=0)
+        with region(STEP["loss"]):
+            return (embed, dec, e_opt, d_opt), torch.sum(torch.stack(batch_losses), dim=0)
 
     run = fit_graphs(graphs, device, shard, epochs)
     key = ("latent_epoch", spec, kind)

@@ -9,7 +9,8 @@ logs (``simplesif.py:64,144``) and the ``--time_test`` timing
   the card, the device kernels (K1's and K2's among them);
 - :func:`region`, a named host range of the program (``mmtpu.<layer>.<what>``)
   in the trace of an active profiler session, and nothing without one
-  (:func:`in_region`: a function's whole call as such a range);
+  (:func:`in_region`: a function's whole call as such a range); the parts
+  of a fit's training step are the ranges :data:`STEP` names;
 - :class:`StepTimer`, steady-state step timing with warm-up calls left out;
   the card's queued work is waited for (``torch.cuda.synchronize()``)
   before a step's clock stops, in the ``with`` form and in ``time_fn``.
@@ -59,6 +60,23 @@ def region(name: str):
     if torch.autograd._profiler_enabled():
         return _Range(name)
     return contextlib.nullcontext()
+
+
+# the parts of a training step of the fits (train/latents.py, train/e2e.py,
+# train/fused.py), each the region "mmtpu.step.<part>" around the code that
+# computes it; no two nest.  gather: the batch's rows of the data, labels
+# and mask, and the leaves the backward differentiates; decoder: the norm
+# and the heads' linears; heads: the Gaussian log-probabilities and the
+# weighted joint; word: the word likelihood (K1, the per-token term); senti:
+# the e2e sentiment error; loss: the per-sample weighting and the batch
+# mean; backward: torch.autograd.grad (the operations it runs are tied to
+# the parts of their forward operations by sequence number); optimizer: the
+# decoder's and the sentiment head's updates (K2 in the fused step) and the
+# embedding table's (lazy Adam's catch-up and touch); epoch: the table's
+# permutation in and out, and lazy Adam's coefficients and epilogue
+STEP_PARTS = ("gather", "decoder", "heads", "word", "senti", "loss", "backward", "optimizer",
+              "epoch")
+STEP = {part: f"mmtpu.step.{part}" for part in STEP_PARTS}
 
 
 def in_region(name: str):

@@ -41,6 +41,7 @@ import mmtpu_torch.train.sentiment as ts
 from mmtpu_torch.sweep.runner import SweepDraws, run_chunk, run_sweep
 from mmtpu_torch.train import e2e as te2e
 from mmtpu_torch.utils import profiling
+from mmtpu_torch.utils.profiling import STEP
 from tests.test_torch_graphs import (ReplayOnCpu, _assert_bit_equal, _config_axis_inputs,
                                      _e2e_inputs, _hp, _sentiment_inputs)
 from tests.test_torch_sweep import BATCH, one_torch_thread, tiny_prep  # noqa: F401
@@ -265,8 +266,10 @@ def test_ranges_only_under_a_profiler(prep, shared, monkeypatch, profiled):
     """Without a profiler session the sweep enters no range; under one, the
     call, each chunk's preparation, phases and drain and each warm-up and
     capture are ranges named ``mmtpu.*`` (none ``span:*``, the benchmark's
-    own), each nested in the call, the graphs' inside a phase.  One chunk of
-    two epochs (the first warms each key up, the second captures it)."""
+    own), each nested in the call, the graphs' inside a phase, and the fits'
+    steps enter every part's range ``mmtpu.step.*`` inside the train and
+    inference phases.  One chunk of two epochs (the first warms each key up,
+    the second captures it)."""
     entered = []
 
     def counting(name):
@@ -288,7 +291,9 @@ def test_ranges_only_under_a_profiler(prep, shared, monkeypatch, profiled):
     assert names == collections.Counter(entered)
     made = res.chunk_stats[0]["graphs"]
     assert made["captures"] > 0
-    assert names == collections.Counter(
+    steps = collections.Counter({n: k for n, k in names.items() if n in STEP.values()})
+    assert set(steps) == set(STEP.values())
+    assert names - steps == collections.Counter(
         {"mmtpu.sweep.call": 1, "mmtpu.chunk.prepare": 1, "mmtpu.chunk.drain": 1,
          **{f"mmtpu.chunk.{p}": 1 for p in PHASES},
          "mmtpu.graphs.warmup": made["warmups"], "mmtpu.graphs.capture": made["captures"]})
@@ -301,3 +306,5 @@ def test_ranges_only_under_a_profiler(prep, shared, monkeypatch, profiled):
         assert chain[-1] == "mmtpu.sweep.call", chain
         if chain[0].startswith("mmtpu.graphs."):
             assert {f"mmtpu.chunk.{p}" for p in PHASES} & set(chain), chain
+        if chain[0] in steps:
+            assert {f"mmtpu.chunk.{p}" for p in PHASES[:3]} & set(chain), chain
