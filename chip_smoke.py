@@ -199,6 +199,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    twin device ms and the bounds at each shape.  Phases 4, 5, 8 and 9 hold
    them to at least one launch per step each way, phase 10 to one per step,
    phase 15 and phase 20's alternating and sentiment fits to none.
+23. the Adam kernel (``mmtpu_torch/kernels/adam.py``, runs right after
+   phase 22) against the plain chain on the card (``adam_plain``,
+   ``adam_leaf``) at a width-32 grid step's trees: MOSI's and POM's e2e
+   decoders and sentiment heads, with per-config rates and step counts, a
+   mixed ``active`` and a heads gate with zeros, and lazy Adam's touch of
+   a ``(32, 64, 300)`` block at the first and the last step of a 21-step
+   epoch; one launch per call, bit for bit the chain, two calls bit for
+   bit equal; kernel and chain device ms (CUDA graph replays) and the
+   bytes bound at each.  Every Adam path holds the kernel's launches: an
+   e2e step two tree launches (decoder, sentiment head) and a touch with
+   lazy Adam, three tree launches with dense Adam (phases 6 and 8); a
+   non-e2e training step two tree launches with dense Adam (phase 9); a
+   sweep chunk two tree launches a train step and a touch a step of every
+   fit (phases 10, 11 and 21); the SGD runs (phases 4 and 5) and the
+   alternating, sentiment and server paths (phases 13, 15 and 20) none.
 
 Each phase prints its wall seconds (``[time]``).  Phase 3 also holds K2 with
 the config axis (``K2_BATCHED_SHAPES``, per-config
@@ -207,7 +222,8 @@ times it at the fused chunk's shape, beside 32 2-D calls, one per config slice
 of the same inputs, timed as one burst.  Phases 8-18 run inside the temporary
 directory of phases 4-6, before phase 7, and phases 20 and 21 after phase
 18 in it; phase 19 runs last.  Around each path
-of phases 4-6 and 8-21 the kernel launch counts (K1, K2 and the token kernels) are set to 0 just before and read just after
+of phases 4-6 and 8-21 the kernel launch counts (K1, K2, the token kernels and
+the Adam kernel) are set to 0 just before and read just after
 (phases 12, 17 and 18 in the processes that run them).  The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -318,6 +334,15 @@ OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
 # otherwise), the card against the CPU at the whole-fit parity tolerances
 DEEP_E2E_D = 768
 DEEP_LOSS_RTOL, DEEP_EMB_ATOL = 2e-4, 2e-4
+
+
+# phase 23: the Adam kernel at a width-32 grid step's trees, (audio width,
+# visual width, labels) of MOSI's and POM's decoders (text 300) and
+# sentiment heads (hidden 100), and lazy Adam's touch (rows per block,
+# depth, steps of the epoch); bit for bit the plain chain on the card, as
+# tests/test_torch_cuda.py holds it.  Its bound: 28 bytes a float (p, g, m
+# and v read, p, m and v written) and 12 operations.
+ADAM_K, ADAM_GEOMETRY, ADAM_TOUCH = 32, {"mosi": (74, 47, 1), "pom": (43, 43, 17)}, (64, 300, 21)
 
 
 def log(msg: str) -> None:
@@ -686,19 +711,33 @@ def _k2_device_kernels(torch, fns: dict) -> dict:
 
 
 def _reset_launches(K, T) -> None:
+    import mmtpu_torch.kernels.adam as A
     import mmtpu_torch.kernels.token_dots as TD
 
     K.LAUNCHES.update(fwd=0, bwd=0)
     T.LAUNCHES.update(adam=0, sgd=0)
     TD.LAUNCHES.update(fwd=0, bwd=0)
+    A.LAUNCHES.update(tree=0, touch=0)
 
 
 def _read_launches(K, T) -> dict:
+    import mmtpu_torch.kernels.adam as A
     import mmtpu_torch.kernels.token_dots as TD
 
     return {"k1_fwd": K.LAUNCHES["fwd"], "k1_bwd": K.LAUNCHES["bwd"],
             "k2_adam": T.LAUNCHES["adam"], "k2_sgd": T.LAUNCHES["sgd"],
-            "tok_fwd": TD.LAUNCHES["fwd"], "tok_bwd": TD.LAUNCHES["bwd"]}
+            "tok_fwd": TD.LAUNCHES["fwd"], "tok_bwd": TD.LAUNCHES["bwd"],
+            "adam_tree": A.LAUNCHES["tree"], "adam_touch": A.LAUNCHES["touch"]}
+
+
+def _hold_adam(launches: dict, tag: str, tree: int, touch: int, at_least: bool = False) -> None:
+    """Raise unless ``launches`` holds ``tree`` Adam tree launches and
+    ``touch`` touches (or at least as many)."""
+    got = (launches["adam_tree"], launches["adam_touch"])
+    if not (got[0] >= tree and got[1] >= touch if at_least else got == (tree, touch)):
+        raise AssertionError(f"the Adam kernel launched {got[0]} tree and {got[1]} touch times "
+                             f"in the {tag} path, expected {'at least ' if at_least else ''}"
+                             f"{tree} and {touch}")
 
 
 def _token_case(torch, dev, gen, rows, m, n_tok, v, d=300) -> tuple:
@@ -768,6 +807,110 @@ def check_token_kernels(torch, dev) -> dict:
             f"bound {b['fwd'][0]:.5f} ({b['fwd'][1]}); bwd kernel {t['bwd']:.4f} plain "
             f"{t['bwd_plain']:.4f} bound {b['bwd'][0]:.5f} ({b['bwd'][1]})")
         del lat, voc, ids, g, want, got, fns
+    return out
+
+
+def _adam_trees(torch, dev, gen) -> dict:
+    """Phase 23's trees: ``(p, g, m, v)`` at each of MOSI's and POM's
+    width-32 decoders and sentiment heads, normal draws with small
+    positive ``v``."""
+    from mmtpu_torch.models.decoder import init_decoder
+    from mmtpu_torch.models.sentiment import init_sentiment
+    from mmtpu_torch.tree import tree_map
+
+    out = {}
+    for name, (audio, visual, n_out) in ADAM_GEOMETRY.items():
+        for part, like in (("decoder", init_decoder(gen, 300, audio, visual, False, 300)),
+                           ("sentiment", init_sentiment(gen, 300, 100, n_out))):
+            def draw(scale=1.0, square=False, like=like):
+                def one(t):
+                    x = torch.randn(ADAM_K, *t.shape, generator=gen)
+                    return (scale * (x.square() if square else x)).to(dev)
+                return tree_map(one, like)
+
+            out[f"{name}_{part}"] = (draw(), draw(), draw(0.1), draw(1e-4, square=True))
+    return out
+
+
+def _replayed(torch, fn):
+    """A replay of ``fn`` captured in a CUDA graph, as the train step
+    captures it (after an eager call): an eager call at a decoder tree
+    would time the wrapper's host work."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def check_adam_kernel(torch, dev) -> dict:
+    """Phase 23: the Adam kernel's tree and touch against the plain chain on
+    the card, bit for bit, one launch a call and two calls bit for bit
+    equal; device ms of kernel and chain per call, and the bounds."""
+    import mmtpu_torch.kernels.adam as A
+    from mmtpu_torch.train.optim import (adam_leaf, adam_plain, lazy_adam_catch_up,
+                                         lazy_adam_coeffs)
+    from mmtpu_torch.tree import tree_leaves, tree_map
+
+    gen = torch.Generator().manual_seed(23)
+    k = ADAM_K
+    lr = (10.0 ** -torch.randint(2, 5, (k,), generator=gen).float()).to(dev)
+    count0 = torch.randint(0, 2100, (k,), generator=gen, dtype=torch.int32).to(dev)
+    c = (count0 + 1).float()
+    bc1, bc2 = 1.0 - torch.pow(0.9, c), 1.0 - torch.pow(0.999, c)
+    active = (torch.rand(k, generator=gen) < 0.8).to(dev)
+    gate = (torch.rand(k, generator=gen) < 0.7).float().to(dev)
+    cases = {}
+    for tag, (p, g, m, v) in _adam_trees(torch, dev, gen).items():
+        gates = None
+        if tag.endswith("decoder"):  # fit_e2e's per-config heads gate
+            gates = {"heads": tree_map(lambda _: gate, p["heads"]),
+                     "norm": tree_map(lambda _: 1.0, p["norm"])}
+        cases[tag] = ("tree", sum(t.numel() for t in tree_leaves(p)),
+                      lambda p=p, g=g, m=m, v=v, gates=gates: A.adam_tree(
+                          p, g, m, v, lr, bc1, bc2, active, gates),
+                      lambda p=p, g=g, m=m, v=v, gates=gates: adam_plain(
+                          p, g, m, v, lr, bc1, bc2, active, gates))
+    b, d, steps = ADAM_TOUCH
+    p, m, v = (torch.randn(k, steps * b, d, generator=gen).to(dev) for _ in range(3))
+    v = 1e-4 * v.square()
+    g = torch.randn(k, b, d, generator=gen).to(dev)
+    coeffs = lazy_adam_coeffs(count0, steps, lr)
+    for s in (0, steps - 1):  # views of the table (configs a table apart); the catch-up's
+        blk = slice(s * b, (s + 1) * b)
+        p_s, m_s, v_s = lazy_adam_catch_up(p[:, blk], m[:, blk], v[:, blk], s, coeffs)
+        b1, b2 = coeffs[2][:, s], coeffs[3][:, s]
+        cases[f"touch_s{s}"] = (
+            "touch", p_s.numel(),
+            lambda p_s=p_s, m_s=m_s, v_s=v_s, b1=b1, b2=b2: A.adam_touch(
+                p_s, m_s, v_s, g, lr, b1, b2),
+            lambda p_s=p_s, m_s=m_s, v_s=v_s, b1=b1, b2=b2: adam_leaf(
+                p_s, g, m_s, v_s, lr, b1, b2))
+    flat = lambda outs: [t for o in outs for t in tree_leaves(o)]  # noqa: E731
+    out = {"times": {}, "bounds": {}, "floats": {}}
+    for tag, (kind, floats, kernel, chain) in cases.items():
+        before = dict(A.LAUNCHES)
+        got = [flat(kernel()) for _ in range(2)]
+        torch.cuda.synchronize()
+        launched = {n: A.LAUNCHES[n] - before[n] for n in before}
+        want = flat(chain())
+        equal = all(torch.equal(x, y) for x, y in zip(got[0], want))
+        same = all(torch.equal(x, y) for x, y in zip(got[0], got[1]))
+        log(f"[adam] {tag} ({floats} floats): launches {launched}; bit-equal the chain "
+            f"{equal}; repeat bit-equal {same}")
+        if launched != {kind: 2, **{n: 0 for n in before if n != kind}}:
+            raise AssertionError(f"the Adam kernel at {tag} launched {launched}, expected two "
+                                 f"{kind} launches")
+        if not (equal and same):
+            raise AssertionError(f"the Adam kernel at {tag} differs from the chain or between "
+                                 f"two calls")
+        t = out["times"][tag] = {"kernel": _device_ms(torch, _replayed(torch, kernel), reps=50),
+                                 "plain": _device_ms(torch, _replayed(torch, chain), reps=20)}
+        bnd = out["bounds"][tag] = bound_ms(12.0 * floats, 28.0 * floats)
+        out["floats"][tag] = floats
+        log(f"[adam] {tag} device ms: kernel {t['kernel']:.4f} chain {t['plain']:.4f} bound "
+            f"{bnd[0]:.5f} ({bnd[1]}), {100.0 * bnd[0] / t['kernel']:.1f} % of it")
     return out
 
 
@@ -849,6 +992,11 @@ def run_cli_path(torch, K, T, tmp: str, e2e: bool, flags=(), tag=None, **cfg_ove
         if launches[k] < steps:
             raise AssertionError(f"{k} launched {launches[k]} times in the {tag} path, "
                                  f"expected at least {steps}")
+    lazy = "--lazy_adam" in flags
+    if cfg["optimizer"] != "adam":
+        _hold_adam(launches, tag, 0, 0)
+    elif e2e:  # each train step's; the inference fits step their tables on top
+        _hold_adam(launches, tag, (2 if lazy else 3) * steps, steps if lazy else 0, at_least=True)
     train_s = sum(s for n, trains, s, _ in fits if trains)
     train_utt_s = 1284 * N_EPOCHS / train_s
     log(f"[{tag}] run.main wall {wall:.3f} s; train fit {train_s:.3f} s = "
@@ -920,6 +1068,9 @@ def run_fused_path(torch, K, T, tmp: str) -> dict:
                                  f"expected {2 * steps}")
         if res[False]["launches"][f"k2_{kind}"] != 0:
             raise AssertionError(f"K2-{kind} launched in the dense fit")
+        for f in (False, True):  # dense Adam: the decoder, the sentiment head, the table
+            _hold_adam(res[f]["launches"], f"{'fused' if f else 'dense'} {kind} e2e fit",
+                       3 * steps if kind == "adam" else 0, 0)
         for k in ("k1_fwd", "k1_bwd"):
             if res[True]["launches"][k] < steps:
                 raise AssertionError(f"{k} launched {res[True]['launches'][k]} times in the "
@@ -983,6 +1134,7 @@ def run_lazy_path(torch, K, T, tmp: str) -> dict:
                              f"{2 * steps} K2-adam")
     if min(launches["k1_fwd"], launches["k1_bwd"]) < steps:
         raise AssertionError(f"K1 launched {launches} times in the fused lazy fit")
+    _hold_adam(launches, "fused lazy e2e fit", 2 * steps, steps)
     fused_rel = abs(float(fit[3][-1]) - lazy["final_loss"]) / abs(lazy["final_loss"])
     utt_s = 1284 * ecfg.n_epochs / secs
     log(f"[lazy] fused + lazy e2e fit: final loss rel {fused_rel:.3e} against the lazy run; "
@@ -1058,6 +1210,7 @@ def run_curve_and_resume(torch, K, T, tmp: str, non_e2e: dict) -> dict:
     if launches["k1_fwd"] != (N_EPOCHS - 1) * STEPS_PER_EPOCH:
         raise AssertionError(f"the resumed fit launched K1 {launches['k1_fwd']} times: "
                              f"it did not start at epoch 1")
+    _hold_adam(launches, "resumed Adam training fit", 2 * (N_EPOCHS - 1) * STEPS_PER_EPOCH, 0)
     pairs = [(resumed[0], whole[0]), (resumed[2], whole[2])] + list(
         zip(tree_leaves(resumed[1]), tree_leaves(whole[1])))
     bit_equal = all(torch.equal(a, b) for a, b in pairs)
@@ -1140,6 +1293,7 @@ def run_sweep_chunk(torch, K, T, tmp: str) -> dict:
     if launches["tok_fwd"] != len(want_rows) or launches["tok_bwd"] != len(want_rows):
         raise AssertionError(f"token kernels launched {launches} in the chunk, expected "
                              f"{len(want_rows)} each (one per step, as K1)")
+    _hold_adam(launches, "sweep chunk", 2 * train_steps, len(want_rows))
 
     ok = ~chunk.diverged
     log(f"[sweep] diverged: {int(chunk.diverged.sum())} of {k} "
@@ -1270,6 +1424,11 @@ def fused_chunk(torch, K, T, tmp: str, kind: str, configs: list, dense=None) -> 
         if launches[True][kk] != launches[False][kk] or not launches[True][kk]:
             raise AssertionError(f"{kk}: fused chunk {launches[True][kk]}, dense "
                                  f"{launches[False][kk]}")
+    all_steps = steps + SWEEP_EPOCHS * sum(-(-prep.sif_init[s].shape[0] // 512)
+                                           for s in ("valid", "test"))
+    for f in (False, True):  # Adam: the decoder and the sentiment head; a touch every step
+        _hold_adam(launches[f], f"{'fused' if f else 'dense'} {kind} chunk",
+                   2 * steps if kind == "adam" else 0, all_steps if kind == "adam" else 0)
     if not np.array_equal(fused.diverged, dense.diverged) or dense.diverged.all():
         raise AssertionError(f"diverged configs differ: fused {fused.diverged}, dense "
                              f"{dense.diverged}")
@@ -1735,7 +1894,7 @@ def run_alternating(torch, K, T, tmp: str) -> dict:
         f"{[round(x, 4) for x in losses.tolist()]}; against the CPU: losses max rel "
         f"{loss_rel:.3e}, latents max abs {lat_abs:.3e}")
     if launches != {"k1_fwd": steps, "k1_bwd": 0, "k2_adam": 0, "k2_sgd": 0, "tok_fwd": 0,
-                    "tok_bwd": 0}:
+                    "tok_bwd": 0, "adam_tree": 0, "adam_touch": 0}:
         raise AssertionError(f"the alternating fit launched {launches}, expected K1-fwd {steps}")
     if not (torch.isfinite(losses).all() and torch.isfinite(lat).all()
             and loss_rel < ALT_LOSS_RTOL and lat_abs < ALT_LAT_ATOL):
@@ -2691,6 +2850,8 @@ def run_pom_sweeps(torch, K, T, dev) -> dict:
     if any(launches[k] != want for k in ("k1_fwd", "k1_bwd", "tok_fwd", "tok_bwd")):
         raise AssertionError(f"K1 and the token kernels launched {launches} in the POM sweep, "
                              f"expected {want} each")
+    train_steps = POM_SWEEP_EPOCHS * -(-n_train // 64)
+    _hold_adam(launches, "POM sweep", len(stats) * 2 * train_steps, want)
     if not _finite_result(sweep) or sweep.metrics["mae"].shape != (POM_SWEEP_K, 17):
         raise AssertionError("the POM sweep has a non-finite result or a wrong metric shape")
     out["sweep"] = {"wall_s": wall, "chunks": stats, "launches": launches, "peak": mem8}
@@ -2714,6 +2875,7 @@ def run_pom_sweeps(torch, K, T, dev) -> dict:
             "k1_fwd", "k1_bwd", "tok_fwd", "tok_bwd")):
         raise AssertionError(f"the width-{POM_WIDE_K} POM chunk: finite "
                              f"{_finite_result(chunk)}, launches {launches}")
+    _hold_adam(launches, f"width-{POM_WIDE_K} POM chunk", 2 * train_steps, per_chunk)
     out["wide_chunk"] = {"wall_s": wall, "phase_s": chunk.phase_s, "launches": launches,
                          "peak": mem32}
     del chunk
@@ -3288,7 +3450,8 @@ def run_graph_small_fits(torch, K, T, tmp: str, dev) -> dict:
             f"{rec['params_abs']:.3e}, bit-equal {rec['bit_equal']}")
         k1 = GRAPH_SENT_EPOCHS * SENT_STEPS_PER_EPOCH if path == "alternating_fit" else 0
         if any(t["launches"] != {"k1_fwd": k1, "k1_bwd": 0, "k2_adam": 0, "k2_sgd": 0,
-                                 "tok_fwd": 0, "tok_bwd": 0} for t in turns):
+                                 "tok_fwd": 0, "tok_bwd": 0, "adam_tree": 0, "adam_touch": 0}
+               for t in turns):
             raise AssertionError(f"{path}: launches {rec['launches']}, expected K1-fwd {k1} "
                                  f"in every turn and nothing else")
         if not all(g.captures and g.replays for g in made) or any(
@@ -3961,6 +4124,7 @@ def main() -> int:
     k1 = _phase("2 (K1)", check_kernels, torch, K, dev)
     k2 = _phase("3 (K2)", check_k2, torch, T, dev)
     tok = _phase("22 (token kernels)", check_token_kernels, torch, dev)
+    adam = _phase("23 (Adam kernel)", check_adam_kernel, torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         non_e2e = _phase("4 (non-e2e)", run_cli_path, torch, K, T, tmp, e2e=False)
         e2e = _phase("5 (e2e)", run_cli_path, torch, K, T, tmp, e2e=True,
@@ -4070,6 +4234,22 @@ def main() -> int:
          "launches_task_pom_sweep": tasks["sweeps"]["sweep"]["launches"][f"tok_{kind}"],
          "launches_task_pom_chunk_k32": tasks["sweeps"]["wide_chunk"]["launches"][f"tok_{kind}"]}
         for kind in ("fwd", "bwd")
+    ] + [
+        {"name": "adam_apply", "route": "cuda", "source": "mmtpu_torch/csrc/adam.cu",
+         "replaces": "mmtpu/train/optim.py:107 (no Pallas kernel: XLA fuses each leaf's update)",
+         "launches": sweep["launches"]["adam_tree"], "max_abs_err": 0.0,
+         "ms": adam["times"]["mosi_decoder"]["kernel"],
+         "plain_ms": adam["times"]["mosi_decoder"]["plain"],
+         "bound_ms": adam["bounds"]["mosi_decoder"][0],
+         "bound_by": adam["bounds"]["mosi_decoder"][1], "library_ms": None,
+         **{f"{key}_{tag}": val for tag in adam["times"] for key, val in (
+             ("floats", adam["floats"][tag]), ("ms", adam["times"][tag]["kernel"]),
+             ("plain_ms", adam["times"][tag]["plain"]), ("bound_ms", adam["bounds"][tag][0]))},
+         "launches_touch_sweep_chunk": sweep["launches"]["adam_touch"],
+         "launches_fused_lazy_e2e": [lazy["launches"]["fused_lazy_adam"][f"adam_{n}"]
+                                     for n in ("tree", "touch")],
+         "launches_task_pom_sweep": [tasks["sweeps"]["sweep"]["launches"][f"adam_{n}"]
+                                     for n in ("tree", "touch")]}
     ], "launches_by_path": by_path,
         "paths": {"non_e2e": {k: non_e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},
                   "e2e": {k: e2e[k] for k in ("wall_s", "train_utt_s", "final_loss")},

@@ -125,6 +125,11 @@ def load() -> ctypes.CDLL:
         for fn in ("token_dots_fwd", "token_dots_bwd"):
             getattr(lib, fn).argtypes = [vp, ll, ll, vp, vp, i, vp, ll, ll] + [i] * 9 + [vp]
             getattr(lib, fn).restype = i
+        lib.adam_apply.argtypes = [vp, i, vp]
+        lib.adam_apply.restype = i
+        for fn in ("adam_args_size", "adam_max_leaves", "adam_tile"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
         _lib = lib
     return _lib
 

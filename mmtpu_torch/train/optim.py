@@ -22,6 +22,11 @@ Under the sweep's config axis every leaf has a leading ``(K,)`` axis, and
 ``lr``, ``active``, the gates and the step count are ``(K,)`` tensors, each
 viewed to a leaf's rank (:func:`mmtpu_torch.tree.per_config`): config k
 steps with its own rate and only when its own mask is on.
+
+The Adam law of :func:`opt_update` and :func:`lazy_adam_touch` goes through
+:mod:`mmtpu_torch.kernels.adam`: on the card one hand-written kernel launch
+for a whole tree; on the CPU :func:`adam_plain` and :func:`adam_leaf`, the
+law in plain PyTorch and the kernel's twin.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from mmtpu_torch.kernels import adam as adam_kernel
 from mmtpu_torch.tree import per_config, tree_map
 
 OPT_SGD = 0
@@ -116,18 +122,37 @@ def opt_update(params, grads, state: OptState, lr, opt_code, active=True,
 
     bc1 = 1.0 - torch.pow(_B1, count.to(torch.float32))
     bc2 = 1.0 - torch.pow(_B2, count.to(torch.float32))
+    new_params, m, v = adam_kernel.adam_tree(params, grads, state.m, state.v, lr, bc1, bc2,
+                                             active, gates)
+    return new_params, OptState(m=m, v=v, count=new_count)
+
+
+def adam_leaf(p, g, m, v, lr, bc1, bc2):
+    """One tensor's Adam step, ungated: ``(p2, m2, v2)``.  ``lr`` and the
+    bias corrections are numbers, 0-d tensors or ``(K,)`` per config."""
+    nd = p.ndim
+    m2 = _B1 * m + (1.0 - _B1) * g
+    v2 = _B2 * v + (1.0 - _B2) * torch.square(g)
+    b1, b2 = per_config(bc1, nd), per_config(bc2, nd)
+    return p - per_config(lr, nd) * (m2 / b1) / (torch.sqrt(v2 / b2) + _EPS), m2, v2
+
+
+def adam_plain(params, grads, m, v, lr, bc1, bc2, active=True, gates=None):
+    """``(params2, m2, v2)``: :func:`opt_update`'s Adam law over a tree in
+    plain PyTorch (about 18 elementwise kernels a leaf), with the caller's
+    bias corrections; each leaf moves where ``active`` and its gate are on.
+    The twin of :func:`mmtpu_torch.kernels.adam.adam_tree`."""
+    if gates is None:
+        gates = tree_map(lambda _: 1.0, params)
 
     def leaf(p, g, m, v, gt):
         on = _gated(active, gt)
-        m2 = _B1 * m + (1.0 - _B1) * g
-        v2 = _B2 * v + (1.0 - _B2) * torch.square(g)
-        b1, b2 = per_config(bc1, p.ndim), per_config(bc2, p.ndim)
-        p2 = p - per_config(lr, p.ndim) * (m2 / b1) / (torch.sqrt(v2 / b2) + _EPS)
+        p2, m2, v2 = adam_leaf(p, g, m, v, lr, bc1, bc2)
         return _select(on, p2, p), _select(on, m2, m), _select(on, v2, v)
 
-    out = tree_map(leaf, params, grads, state.m, state.v, gates)
+    out = tree_map(leaf, params, grads, m, v, gates)
     pick = lambda i: tree_map(lambda t: t[i], out) if isinstance(out, dict) else out[i]
-    return pick(0), OptState(m=pick(1), v=pick(2), count=new_count)
+    return pick(0), pick(1), pick(2)
 
 
 def lazy_adam_coeffs(count0: torch.Tensor, n_steps: int, lr):
@@ -178,12 +203,9 @@ def lazy_adam_catch_up(p0, m0, v0, s: int, coeffs):
 @torch.no_grad()
 def lazy_adam_touch(p_s, m_s, v_s, g, s: int, lr, coeffs):
     """The block's real Adam step at epoch step index ``s`` (0-based; global
-    step ``count0 + s + 1``), :func:`opt_update`'s law."""
-    nd = p_s.ndim
-    bc1, bc2 = per_config(coeffs[2][..., s], nd), per_config(coeffs[3][..., s], nd)
-    m2 = _B1 * m_s + (1.0 - _B1) * g
-    v2 = _B2 * v_s + (1.0 - _B2) * torch.square(g)
-    return p_s - per_config(lr, nd) * (m2 / bc1) / (torch.sqrt(v2 / bc2) + _EPS), m2, v2
+    step ``count0 + s + 1``), :func:`opt_update`'s law: on the card one
+    launch of :func:`mmtpu_torch.kernels.adam.adam_touch`."""
+    return adam_kernel.adam_touch(p_s, m_s, v_s, g, lr, coeffs[2][..., s], coeffs[3][..., s])
 
 
 @torch.no_grad()

@@ -7,8 +7,9 @@ This file imports no jax, so it also runs on a GPU machine without jax:
 Tolerances: K1 forward rtol 1e-5 and backward atol 1e-5, K2 rtol 1e-5 /
 atol 1e-5, against the plain versions (the TPU kernels' tests); the token
 kernels rtol 1e-5 against their plain twins (atol 1e-5 on the dots, 1e-4 on
-latent gradients, sums of up to 1357 tokens in another order); small fits on
-the card against the same fits on the CPU at the parity tests' 2e-4.
+latent gradients, sums of up to 1357 tokens in another order); the Adam
+kernel bit for bit against the plain chain on the card; small fits on the
+card against the same fits on the CPU at the parity tests' 2e-4.
 """
 
 import numpy as np
@@ -1051,3 +1052,170 @@ def test_sweep_timeline_events_on_the_card(cuda_device):
                                                 + 1e-5)
         assert 0 <= c["device_start_at_s"] <= c["device_end_at_s"] <= c["done_at_s"] + 0.005
         assert min(c["alloc"].values()) >= 0
+
+
+# the decoder's per-head widths at the grid's geometry (text 300 and the
+# audio / visual widths; MOSI sums to 1,384, POM to 1,244) and the labels
+_GRID_TREES = {"mosi": (74, 47, 1), "pom": (43, 43, 17)}
+
+
+def _adam_tree_case(dev, name, k=32, seed=11):
+    """A width-``k`` e2e step's decoder and sentiment trees at ``name``'s
+    geometry (``k`` None: one config), each ``(params, grads, m, v)``."""
+    from mmtpu_torch.models.decoder import init_decoder
+    from mmtpu_torch.models.sentiment import init_sentiment
+    from mmtpu_torch.tree import tree_map
+
+    audio, visual, n_out = _GRID_TREES[name]
+    gen = torch.Generator().manual_seed(seed)
+    lead = () if k is None else (k,)
+    trees = []
+    for like in (init_decoder(gen, 300, audio, visual, False, 300),
+                 init_sentiment(gen, 300, 100, n_out)):
+        def draw(scale=1.0, square=False):
+            def one(t):
+                x = torch.randn(*lead, *t.shape, generator=gen)
+                return (scale * (x.square() if square else x)).to(dev)
+            return tree_map(one, like)
+
+        trees.append((draw(), draw(), draw(0.1), draw(1e-4, square=True)))
+    return trees
+
+
+def _same_trees(a, b) -> bool:
+    from mmtpu_torch.tree import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["on", "mixed"])
+@pytest.mark.parametrize("name", ["mosi", "pom"])
+def test_adam_kernel_equals_the_chain_at_grid_trees(cuda_device, name, variant):
+    """``opt_update``'s Adam step through the kernel equals the plain chain
+    (``adam_plain``) run on the card, bit for bit in p, m and v, at a
+    width-32 grid step's decoder and sentiment trees: per-config rates and
+    step counts, every config active and ungated (``on``), or a mixed
+    ``active`` and a per-config heads gate with zeros (``mixed``), as
+    ``fit_e2e`` gates the heads; one tree launch each."""
+    import mmtpu_torch.kernels.adam as A
+    from mmtpu_torch.train.optim import OptState, adam_plain, opt_update
+    from mmtpu_torch.tree import tree_map
+
+    k = 32
+    gen = torch.Generator().manual_seed(12)
+    lr = (10.0 ** -torch.randint(2, 5, (k,), generator=gen).float()).to(cuda_device)
+    count = torch.randint(0, 2100, (k,), generator=gen, dtype=torch.int32).to(cuda_device)
+    active, gate = torch.ones(k, dtype=torch.bool), torch.ones(k)
+    if variant == "mixed":
+        active = torch.rand(k, generator=gen) < 0.7
+        gate = (torch.rand(k, generator=gen) < 0.6).float()
+    active, gate = active.to(cuda_device), gate.to(cuda_device)
+    c = (count + 1).float()
+    bc1, bc2 = 1.0 - torch.pow(0.9, c), 1.0 - torch.pow(0.999, c)
+    for i, (p, g, m, v) in enumerate(_adam_tree_case(cuda_device, name)):
+        gates = None
+        if i == 0:
+            gates = {"heads": tree_map(lambda _: gate, p["heads"]),
+                     "norm": tree_map(lambda _: 1.0, p["norm"])}
+        before = dict(A.LAUNCHES)
+        p2, s2 = opt_update(p, g, OptState(m=m, v=v, count=count), lr, None, active,
+                            kind="adam", gates=gates)
+        torch.cuda.synchronize()
+        assert {n: A.LAUNCHES[n] - before[n] for n in before} == {"tree": 1, "touch": 0}
+        want = adam_plain(p, g, m, v, lr, bc1, bc2, active, gates)
+        assert _same_trees(p2, want[0]) and _same_trees(s2.m, want[1])
+        assert _same_trees(s2.v, want[2])
+        assert not _same_trees(p2, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lr_kind", ["float", "tensor"])
+def test_adam_kernel_one_config(cuda_device, lr_kind):
+    """One config (no config axis) at MOSI's geometry: a float rate and a
+    bool ``active``, or 0-d tensors of both; bit for bit the chain, and an
+    inactive step keeps every leaf and launches nothing."""
+    import mmtpu_torch.kernels.adam as A
+    from mmtpu_torch.train.optim import OptState, adam_plain, opt_update
+
+    (p, g, m, v), _ = _adam_tree_case(cuda_device, "mosi", k=None)
+    count = torch.tensor(6, dtype=torch.int32, device=cuda_device)
+    lr = 1e-3 if lr_kind == "float" else torch.tensor(1e-3, device=cuda_device)
+    on = True if lr_kind == "float" else torch.tensor(True, device=cuda_device)
+    c = (count + 1).float()
+    bc1, bc2 = 1.0 - torch.pow(0.9, c), 1.0 - torch.pow(0.999, c)
+    before = dict(A.LAUNCHES)
+    p2, s2 = opt_update(p, g, OptState(m=m, v=v, count=count), lr, None, on, kind="adam")
+    want = adam_plain(p, g, m, v, lr, bc1, bc2, on)
+    assert _same_trees(p2, want[0]) and _same_trees(s2.m, want[1]) and _same_trees(s2.v, want[2])
+    kept, _ = opt_update(p, g, OptState(m=m, v=v, count=count), lr, None, False, kind="adam")
+    assert _same_trees(kept, p)
+    assert {n: A.LAUNCHES[n] - before[n] for n in before} == {"tree": 1, "touch": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [0, 10, 20])
+def test_adam_kernel_touch_equals_the_chain(cuda_device, s):
+    """``lazy_adam_touch`` at a MOSI chunk's block (K = 32, B = 64, D = 300,
+    21 steps) through the kernel equals the plain step (``adam_leaf``) on
+    the card bit for bit: at the first block (views of the permuted table,
+    configs a table apart), a middle one and the last (the catch-up's new
+    tensors); one touch launch each."""
+    import mmtpu_torch.kernels.adam as A
+    from mmtpu_torch.train.optim import (adam_leaf, lazy_adam_catch_up, lazy_adam_coeffs,
+                                         lazy_adam_touch)
+
+    k, b, d, steps = 32, 64, 300, 21
+    gen = torch.Generator().manual_seed(13)
+    p, m, v = (torch.randn(k, steps * b, d, generator=gen).to(cuda_device) for _ in range(3))
+    v = 1e-4 * v.square()
+    g = torch.randn(k, b, d, generator=gen).to(cuda_device)
+    lr = (10.0 ** -torch.randint(2, 5, (k,), generator=gen).float()).to(cuda_device)
+    coeffs = lazy_adam_coeffs(torch.arange(k, dtype=torch.int32, device=cuda_device) * 63,
+                              steps, lr)
+    blk = slice(s * b, (s + 1) * b)
+    p_s, m_s, v_s = lazy_adam_catch_up(p[:, blk], m[:, blk], v[:, blk], s, coeffs)
+    before = dict(A.LAUNCHES)
+    got = lazy_adam_touch(p_s, m_s, v_s, g, s, lr, coeffs)
+    torch.cuda.synchronize()
+    assert {n: A.LAUNCHES[n] - before[n] for n in before} == {"tree": 0, "touch": 1}
+    want = adam_leaf(p_s, g, m_s, v_s, lr, coeffs[2][:, s], coeffs[3][:, s])
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_captured_e2e_fit_replays_the_adam_kernel(cuda_device, made_graphs):
+    """A lazy-Adam e2e fit at MIN_EPOCHS epochs captured (the default)
+    equals its eager run bit for bit (losses, embeddings), and both count
+    two tree launches (decoder, sentiment head) and one touch a step: a
+    replay adds what its capture recorded."""
+    import mmtpu_torch.kernels.adam as A
+
+    x = _tiny_fit_inputs(cuda_device)
+    out = {}
+    for graphs in (False, True):
+        before = dict(A.LAUNCHES)
+        emb, losses = _fit("adam-e2e-lazy", x, graphs)
+        torch.cuda.synchronize()
+        out[graphs] = (emb.cpu(), losses.cpu(), {n: A.LAUNCHES[n] - before[n] for n in before})
+    steps = MIN_EPOCHS * 5
+    assert out[False][2] == out[True][2] == {"tree": 2 * steps, "touch": steps}
+    assert [(g.enabled, g.captures, g.replays) for g in made_graphs] == [
+        (False, 0, 0), (True, 1, MIN_EPOCHS - 1)]
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+
+
+@pytest.mark.cuda
+def test_adam_kernel_raises_for_leaves_it_does_not_take(cuda_device):
+    """Float64 leaves on the card raise: no Adam step on the card falls
+    back to the plain chain."""
+    from mmtpu_torch.train.optim import (init_opt_state, lazy_adam_coeffs, lazy_adam_touch,
+                                         opt_update)
+
+    p = {"w": torch.ones(4, 3, dtype=torch.float64, device=cuda_device)}
+    with pytest.raises(TypeError, match="float32"):
+        opt_update(p, p, init_opt_state(p, "adam"), 1e-3, None, True, kind="adam")
+    coeffs = lazy_adam_coeffs(torch.tensor(0, dtype=torch.int32, device=cuda_device), 2, 1e-3)
+    with pytest.raises(TypeError, match="float32"):
+        lazy_adam_touch(p["w"], p["w"], p["w"], p["w"], 0, 1e-3, coeffs)
